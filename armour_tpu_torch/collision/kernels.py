@@ -1,0 +1,302 @@
+"""The collision bank pass: CUDA kernels for Hopper and their plain versions.
+
+Three entry points, one CUDA source (`armour_tpu_torch/csrc/collision_bank.cu`),
+replacing the Pallas TPU kernels of `armour_tpu/collision/pallas_kernel.py`
+(the single-start one launches the multi-start kernel at S = 1):
+
+| entry point                        | replaces (pallas_kernel.py)            |
+| `fused_collision_value_jac_multi`  | `fused_collision_value_jac_multi` :153 |
+| `fused_collision_values_multi`     | `fused_collision_values_multi` :214    |
+| `fused_collision_value_jac`        | `fused_collision_value_jac` :71        |
+
+Each wrapper dispatches on the device of the tensors it is given: CPU
+tensors go to the plain PyTorch version beside it (the batched form of the
+JAX ``impl="xla"`` pipeline, `zonotope.py:175-185`, `:227-256`); CUDA
+tensors go to the kernel, or the wrapper raises.  There is no fallback.
+Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+
+The library is built at first use with ``nvcc`` into
+``armour_tpu_torch/build/`` (a plain C interface, loaded with ctypes).
+Layouts are those of the kernel source's header comment.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parents[1]
+SOURCE = _PKG / "csrc" / "collision_bank.cu"
+BUILD_DIR = _PKG / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1, torch.float64: 2}
+_MAX_STARTS = 8
+_START = -1e30  # the running max's start value
+
+
+# ---------------------------------------------------------------------------
+# plain versions (CPU path, and the yardstick the kernels are checked against)
+# ---------------------------------------------------------------------------
+
+def _pieces(A, dpos, dneg, c):
+    """vp, vn: (B, S, P, L, O, T) for A (B,P,3,L,O,T) and c (B,S,3,L,T)."""
+    Af = A.to(dpos.dtype)[:, None]                       # (B, 1, P, 3, L, O, T)
+    cc = c[:, :, None, :, :, None, :]                    # (B, S, 1, 3, L, 1, T)
+    Ac = Af[:, :, :, 0] * cc[:, :, :, 0] + Af[:, :, :, 1] * cc[:, :, :, 1] + Af[:, :, :, 2] * cc[:, :, :, 2]
+    return Ac - dpos[:, None], -Ac - dneg[:, None]
+
+
+def _piece_max(vp, vn):
+    """The kernel's running max over the pieces (dim 2): start at -1e30,
+    first maximum wins, a piece with a NaN never wins.  Returns best
+    (B,S,1,L,O,T), its first index, and whether any piece beat -1e30."""
+    both = torch.where(torch.isnan(vp) | torch.isnan(vn), -torch.inf, torch.maximum(vp, vn))
+    best, idx = torch.max(both, dim=2, keepdim=True)     # first maximum, like jnp.argmax
+    won = best > _START
+    return torch.where(won, best, _START), idx, won
+
+
+def tie_mask(A, dpos, dneg, c, tol=1e-5):
+    """(B, S, L, O, T): slots whose best of the 2P pieces (pairs with a NaN
+    left out) leads the second by more than ``tol``.  Elsewhere the winner
+    is a tie and either normal is a valid subgradient, so Jacobians are
+    compared only here."""
+    vp, vn = _pieces(A, dpos, dneg, c)
+    bad = torch.isnan(vp) | torch.isnan(vn)              # pairs that never win
+    both = torch.cat([vp.masked_fill(bad, -torch.inf), vn.masked_fill(bad, -torch.inf)], dim=2)
+    top2 = torch.topk(both, 2, dim=2).values
+    return (top2[:, :, 0] - top2[:, :, 1]) > tol
+
+
+def value_jac_multi_plain(A, dpos, dneg, c, dc):
+    """Plain version of `fused_collision_value_jac_multi`:
+    g (B,S,L,O,T), J (B,S,n,L,O,T)."""
+    vp, vn = _pieces(A, dpos, dneg, c)
+    best, idx, won = _piece_max(vp, vn)
+    sign = torch.where(torch.gather(vp >= vn, 2, idx), -1.0, 1.0).to(dpos.dtype)
+    sign = torch.where(won, sign, 0.0)
+    Af = A.to(dpos.dtype)[:, None].expand(-1, c.shape[1], -1, -1, -1, -1, -1)
+    sel = [sign * torch.gather(Af[:, :, :, k], 2, idx) for k in range(3)]  # (B, S, 1, L, O, T)
+    d = dc[..., None, :]                                 # (B, S, n, 3, L, 1, T)
+    J = sel[0] * d[:, :, :, 0] + sel[1] * d[:, :, :, 1] + sel[2] * d[:, :, :, 2]
+    return -best[:, :, 0], J
+
+
+def values_multi_plain(A, dpos, dneg, c):
+    """Plain version of `fused_collision_values_multi`: g (B,S,L,O,T)."""
+    return -_piece_max(*_pieces(A, dpos, dneg, c))[0][:, :, 0]
+
+
+def value_jac_plain(A, dpos, dneg, c, dc):
+    """Plain version of `fused_collision_value_jac`: c (B,3,L,T),
+    dc (B,n,3,L,T) -> g (B,L,O,T), J (B,n,L,O,T)."""
+    g, J = value_jac_multi_plain(A, dpos, dneg, c[:, None], dc[:, None])
+    return g[:, 0], J[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# build and load
+# ---------------------------------------------------------------------------
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the collision kernels are built from "
+                       f"{SOURCE} at first use and need the CUDA toolkit")
+
+
+def library_path() -> Path:
+    """Where the built library lives; the name carries a hash of the source
+    and the flags, so an edit never loads a stale build."""
+    h = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"collision_bank-{h}.so"
+
+
+def build(verbose: bool = False) -> dict:
+    """Compile the kernels unless the library for this source exists.
+    Returns {"path", "seconds", "built", "log"}; ``verbose`` adds
+    ``-Xptxas -v`` (registers, spills) to the log."""
+    out = library_path()
+    if out.exists():
+        return {"path": str(out), "seconds": 0.0, "built": False, "log": ""}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", tmp, str(SOURCE)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)
+    return {"path": str(out), "seconds": seconds, "built": True, "log": proc.stderr}
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = ctypes.CDLL(build()["path"])
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.armour_collision_value_jac_multi.argtypes = [
+        ptr, i32, ptr, ptr, i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr]
+    lib.armour_collision_values_multi.argtypes = [
+        ptr, i32, ptr, ptr, i32, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
+    for fn in (lib.armour_collision_value_jac_multi, lib.armour_collision_values_multi):
+        fn.restype = i32
+    return lib
+
+
+def _raise_on(err: int, name: str):
+    if err != 0:
+        try:
+            msg = torch.cuda.cudart().cudaGetErrorString(err)
+        except (RuntimeError, AttributeError):
+            msg = f"cudaError {err}"
+        raise RuntimeError(f"{name}: kernel launch failed: {msg}")
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def _on_cpu(*tensors) -> bool:
+    devs = {t.device.type for t in tensors}
+    if devs == {"cpu"}:
+        return True
+    if devs == {"cuda"} and len({t.device for t in tensors}) == 1:
+        return False
+    raise ValueError(f"collision kernels: tensors on {sorted(str(t.device) for t in tensors)}; "
+                     "all must be on the CPU or all on one CUDA device")
+
+
+def _check_bank(A, dpos, dneg):
+    if A.dim() != 6 or A.shape[2] != 3:
+        raise ValueError(f"A must be (B,P,3,L,O,T), got {tuple(A.shape)}")
+    B, P, _, L, O, T = A.shape
+    for name, t in (("dpos", dpos), ("dneg", dneg)):
+        if tuple(t.shape) != (B, P, L, O, T):
+            raise ValueError(f"{name} must be {(B, P, L, O, T)}, got {tuple(t.shape)}")
+    if dpos.dtype not in (torch.float32, torch.float64) or dneg.dtype != dpos.dtype:
+        raise TypeError(f"offsets must share float32 or float64, got {dpos.dtype}, {dneg.dtype}")
+    if A.dtype not in _DTYPE_CODE or A.element_size() > dpos.element_size():
+        raise TypeError(f"A dtype {A.dtype} not supported with {dpos.dtype} offsets")
+    return B, P, L, O, T
+
+
+def _check_starts(name, t, shape, dtype):
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+
+
+def _check_launchable(S, *tensors):
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("collision kernels take contiguous tensors only")
+    if S > _MAX_STARTS:
+        raise ValueError(f"at most {_MAX_STARTS} starts, got {S}")
+
+
+def _ptr(t: torch.Tensor) -> int:
+    return t.data_ptr()
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _launch_value_jac_multi(A, dpos, dneg, c, dc):
+    """Launch the value + Jacobian kernel on checked CUDA tensors; the
+    caller counts the launch."""
+    B, P, _, L, O, T = A.shape
+    S, n = dc.shape[1], dc.shape[2]
+    g = torch.empty((B, S, L, O, T), dtype=dpos.dtype, device=dpos.device)
+    J = torch.empty((B, S, n, L, O, T), dtype=dpos.dtype, device=dpos.device)
+    err = _lib().armour_collision_value_jac_multi(
+        _ptr(A), _DTYPE_CODE[A.dtype], _ptr(dpos), _ptr(dneg), _DTYPE_CODE[dpos.dtype],
+        _ptr(c), _ptr(dc), _ptr(g), _ptr(J), B, P, L, O, T, S, n, _stream())
+    _raise_on(err, "armour_collision_value_jac_multi")
+    return g, J
+
+
+def fused_collision_value_jac_multi(A, dpos, dneg, c, dc):
+    """Value + k-Jacobian for S starts in one pass over the bank.
+
+    A (B,P,3,L,O,T), dpos/dneg (B,P,L,O,T), c (B,S,3,L,T), dc (B,S,n,3,L,T)
+    -> g (B,S,L,O,T), J (B,S,n,L,O,T)."""
+    B, P, L, O, T = _check_bank(A, dpos, dneg)
+    S, n = dc.shape[1], dc.shape[2]
+    _check_starts("c", c, (B, S, 3, L, T), dpos.dtype)
+    _check_starts("dc", dc, (B, S, n, 3, L, T), dpos.dtype)
+    if _on_cpu(A, dpos, dneg, c, dc):
+        return value_jac_multi_plain(A, dpos, dneg, c, dc)
+    _check_launchable(S, A, dpos, dneg, c, dc)
+    fused_collision_value_jac_multi.launches += 1
+    return _launch_value_jac_multi(A, dpos, dneg, c, dc)
+
+
+def fused_collision_values_multi(A, dpos, dneg, c):
+    """Values only for S starts in one pass: c (B,S,3,L,T) -> g (B,S,L,O,T)."""
+    B, P, L, O, T = _check_bank(A, dpos, dneg)
+    S = c.shape[1]
+    _check_starts("c", c, (B, S, 3, L, T), dpos.dtype)
+    if _on_cpu(A, dpos, dneg, c):
+        return values_multi_plain(A, dpos, dneg, c)
+    _check_launchable(S, A, dpos, dneg, c)
+    g = torch.empty((B, S, L, O, T), dtype=dpos.dtype, device=dpos.device)
+    lib = _lib()
+    fused_collision_values_multi.launches += 1
+    err = lib.armour_collision_values_multi(
+        _ptr(A), _DTYPE_CODE[A.dtype], _ptr(dpos), _ptr(dneg), _DTYPE_CODE[dpos.dtype],
+        _ptr(c), _ptr(g), B, P, L, O, T, S, _stream())
+    _raise_on(err, "fused_collision_values_multi")
+    return g
+
+
+def fused_collision_value_jac(A, dpos, dneg, c, dc):
+    """Value + k-Jacobian for one start: c (B,3,L,T), dc (B,n,3,L,T)
+    -> g (B,L,O,T), J (B,n,L,O,T).  The S = 1 launch of the multi-start
+    kernel, counted here."""
+    B, P, L, O, T = _check_bank(A, dpos, dneg)
+    n = dc.shape[1]
+    _check_starts("c", c, (B, 3, L, T), dpos.dtype)
+    _check_starts("dc", dc, (B, n, 3, L, T), dpos.dtype)
+    if _on_cpu(A, dpos, dneg, c, dc):
+        return value_jac_plain(A, dpos, dneg, c, dc)
+    _check_launchable(1, A, dpos, dneg, c, dc)
+    fused_collision_value_jac.launches += 1
+    g, J = _launch_value_jac_multi(A, dpos, dneg, c[:, None], dc[:, None])
+    return g[:, 0], J[:, 0]
+
+
+KERNELS = (fused_collision_value_jac_multi, fused_collision_values_multi, fused_collision_value_jac)
+PLAIN = {
+    fused_collision_value_jac_multi: value_jac_multi_plain,
+    fused_collision_values_multi: values_multi_plain,
+    fused_collision_value_jac: value_jac_plain,
+}
+
+
+def reset_launch_counts():
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launch_counts() -> dict:
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+reset_launch_counts()

@@ -1,0 +1,324 @@
+"""The ARMOUR planner: reachable sets -> constraints -> batched NLP.
+
+Port of `armour_tpu/planner/armour.py` for the production mode
+(``traj_type="bernstein"``, hard-max collision, no grasp, no
+self-intersection).  The JAX package maps the build over worlds with
+``lax.map`` and vmaps the solve; here the world axis B is a leading
+dimension of every tensor, and a plan is one eager pass over the batch:
+
+    build_probs: Bezier JRS -> PZ-FK/RNEA -> whole-FRS obstacle culling
+                 -> compaction -> bucketed hyperplane bank
+    solve:       multi-start ALM (one collision-kernel launch per
+                 Gauss-Newton iteration) -> fused strict re-verification
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from armour_tpu_torch.collision.zonotope import (
+    BufferedHyperplanes,
+    ObstacleSet,
+    buffer_obstacles,
+    collision_constraints_with_jac_multi,
+)
+from armour_tpu_torch.config import PlannerConfig
+from armour_tpu_torch.device import resolve_device
+from armour_tpu_torch.dynamics.pz_rnea import build_reachable_sets
+from armour_tpu_torch.jrs.bezier import (
+    joint_position_extrema,
+    joint_velocity_extrema,
+    make_bezier_jrs,
+    q_des_fn,
+)
+from armour_tpu_torch.ops.pz import PackedPZ, pack_pzs
+from armour_tpu_torch.planner.nlp import jacobian_t, solve_box_alm_multi
+from armour_tpu_torch.robots.spec import RobotSpec
+
+
+def wrap_to_pi(x):
+    """(NLPclass.cu:6-15), branch-free."""
+    return torch.remainder(x + math.pi, 2.0 * math.pi) - math.pi
+
+
+class PlanResult(NamedTuple):
+    k: torch.Tensor              # (B, nf) in [-1,1]; NaN row if infeasible
+    feasible: torch.Tensor       # (B,) bool
+    cost: torch.Tensor           # (B,) final cost (unscaled by COST_SCALE)
+    max_violation: torch.Tensor  # (B,)
+    torque_radius: torch.Tensor  # (B, T, nf)
+
+
+class ProblemData(NamedTuple):
+    """Built reachable-set/constraint data for B planning problems, the
+    output of the build phase, consumed by the solver."""
+
+    links: PackedPZ              # centers (B, T, L, 3)
+    u: PackedPZ | None           # nominal torques (B, T, nf), None without input constraints
+    hp: BufferedHyperplanes | None
+    t_rad: torch.Tensor          # (B, T, nf)
+    q0: torch.Tensor             # (B, nf)
+    qd0: torch.Tensor
+    Tqd0: torch.Tensor
+    TTqdd0: torch.Tensor
+    k_range: torch.Tensor        # (nf,)
+
+
+def obstacle_bucket(masks) -> int:
+    """Smallest obstacle capacity (a multiple of 8) covering every live
+    slot of ``masks`` (`armour.py:213-228`): the bank, the solver's
+    dominant memory stream, is sized by it."""
+    m = masks.cpu().numpy() if isinstance(masks, torch.Tensor) else np.asarray(masks)
+    live = m.any(axis=tuple(range(m.ndim - 1)))
+    need = int(np.nonzero(live)[0].max() + 1) if live.any() else 1
+    return min(m.shape[-1], max(8, -(-need // 8) * 8))
+
+
+@dataclasses.dataclass
+class ArmourPlanner:
+    """Holds one planner configuration on one device.
+
+    ``plan_batch(q0, qd0, qdd0, q_des, zonos, masks)`` plans B worlds at
+    once; ``plan(q0, qd0, qdd0, q_des, obstacles)`` plans one.  Obstacles
+    are padded to ``cfg.max_obstacles``.  ``device`` defaults to the card;
+    without one it raises unless ``device="cpu"`` is passed.
+    """
+
+    spec: RobotSpec
+    cfg: PlannerConfig
+    dtype: torch.dtype = torch.float64
+    device: object = None
+    traj_type: str = "bernstein"
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        if self.traj_type != "bernstein":
+            raise NotImplementedError("only traj_type='bernstein' is ported")
+        if self.cfg.smooth_collision_tau != 0.0:
+            raise NotImplementedError("smooth-collision mode is not ported")
+        spec = self.spec
+        # the relaxed state acceptance threshold is only sound while it
+        # stays well inside the tracking-error padding the limits carry
+        if not self.cfg.state_violation_threshold < 0.1 * min(spec.qe, spec.qde):
+            raise ValueError(
+                f"state_violation_threshold={self.cfg.state_violation_threshold} is "
+                f"not << tracking-error padding qe={spec.qe}, qde={spec.qde}")
+
+    # -- helpers ----------------------------------------------------------
+    def _t(self, x, dtype=None) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=dtype or self.dtype, device=self.device)
+
+    # -- build ------------------------------------------------------------
+    def reachable_sets(self, q0, qd0, qdd0):
+        """Obstacle-independent phase (`armour.py:264-316`): JRS ->
+        PZ-FK/RNEA -> packed slicing tensors.  Returns (ProblemData with
+        hp=None, link_indep_gens (B,T,L,3,6), aabb_c, aabb_r (B,T,L,3)):
+        the AABBs are the interval hulls of the link-center sets over ALL k
+        plus the link-shape radii, for the whole-FRS culling."""
+        cfg = self.cfg
+        q0, qd0, qdd0 = self._t(q0), self._t(qd0), self._t(qdd0)
+        jrs = make_bezier_jrs(self.spec, cfg, q0, qd0, qdd0)
+        rs = build_reachable_sets(self.spec, cfg, jrs)
+        links = pack_pzs(rs.link_pz, axis=2)
+        aabb_c = links.c
+        aabb_r = links.r + rs.link_indep_gens.abs().sum(-1)
+        if len(links.basis):
+            aabb_r = aabb_r + links.G.abs().sum(0)
+        prob = ProblemData(
+            links=links,
+            u=pack_pzs(rs.u_nom, axis=-1) if cfg.input_constraints else None,
+            hp=None,
+            t_rad=rs.torque_radius,
+            q0=q0, qd0=qd0, Tqd0=jrs.Tqd0, TTqdd0=jrs.TTqdd0,
+            k_range=jrs.k_range,
+        )
+        return prob, rs.link_indep_gens, aabb_c, aabb_r
+
+    def cull_keep(self, aabb_c, aabb_r, zonos, masks) -> torch.Tensor:
+        """(B, O) bool: False only when the obstacle is PROVABLY separated
+        from the whole-FRS link hulls for all (t, link) (`armour.py:191-211`)."""
+        margin = self.cfg.collision_numeric_slack + 1e-3
+        obs_c = zonos[:, :, 0]                                  # (B, O, 3)
+        obs_r = zonos[:, :, 1:].abs().sum(2)                    # (B, O, 3)
+        separated = None
+        for i in range(3):  # per axis, to avoid a (B,T,L,O,3) temporary
+            dc = (aabb_c[:, :, :, None, i] - obs_c[:, None, None, :, i]).abs()
+            s_i = dc - aabb_r[:, :, :, None, i] - obs_r[:, None, None, :, i]
+            sep_i = s_i > margin
+            separated = sep_i if separated is None else (separated | sep_i)
+        keep = ~separated.flatten(1, 2).all(dim=1)
+        return keep & masks
+
+    def buffer(self, link_indep_gens, zonos, masks) -> BufferedHyperplanes:
+        """Hyperplane-bank phase (`CollisionChecking.cu:136-228`)."""
+        return buffer_obstacles(
+            link_indep_gens, ObstacleSet(zonos, masks),
+            slack=self.cfg.collision_numeric_slack,
+            store_bf16=self.cfg.collision_bank_bf16,
+        )
+
+    def build_probs(self, q0, qd0, qdd0, zonos, masks, cull: bool | None = None) -> ProblemData:
+        """Batched build: reachable sets -> whole-FRS obstacle culling ->
+        compaction -> bucketed hyperplane bank (`armour.py:151-189`).
+
+        Culling runs when the batch is above the minimum bucket: one
+        device->host trip (the keep mask), then a STABLE compaction of the
+        kept obstacles to the front (the bank's obstacle order decides
+        argmax ties)."""
+        zonos = self._t(zonos)
+        masks = self._t(masks, torch.bool)
+        b0 = obstacle_bucket(masks)
+        prob, link_gens, aabb_c, aabb_r = self.reachable_sets(q0, qd0, qdd0)
+        cull = self.cfg.obstacle_culling if cull is None else cull
+        if not cull or b0 <= 8:
+            hp = self.buffer(link_gens, zonos[:, :b0], masks[:, :b0])
+            return prob._replace(hp=hp)
+        keep = self.cull_keep(aabb_c, aabb_r, zonos, masks).cpu().numpy()
+        order = np.argsort(~keep, axis=1, kind="stable")
+        order_t = torch.as_tensor(order, device=self.device)
+        zonos = torch.gather(zonos, 1, order_t[:, :, None, None].expand(-1, -1, 4, 3))
+        m_np = np.take_along_axis(keep, order, axis=1)
+        b = obstacle_bucket(m_np)
+        masks = torch.as_tensor(m_np[:, :b], device=self.device)
+        return prob._replace(hp=self.buffer(link_gens, zonos[:, :b], masks))
+
+    # -- solve ------------------------------------------------------------
+    def random_starts(self, B: int, generator: torch.Generator | None = None) -> torch.Tensor:
+        """(B, max(S-2, 1), nf) interior random starts, uniform in
+        [-0.6, 0.6) (`armour.py:466-475`).  The JAX package draws them from
+        ``jax.random``; the port from an explicit ``torch.Generator``
+        (seeded 0 unless given), so the two differ: tests inject the JAX
+        starts through ``k_rand``."""
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        n_rand = max(self.cfg.nlp_num_starts - 2, 1)
+        u = torch.rand((B, n_rand, self.spec.n_factors), generator=generator,
+                       dtype=self.dtype, device=self.device)
+        return u * 1.2 - 0.6
+
+    def solve(self, prob: ProblemData, q_des, k_rand=None, k_warm=None,
+              generator: torch.Generator | None = None) -> PlanResult:
+        """NLP phase: constraint closures over a built problem -> multi-start
+        ALM -> fused strict re-verification (`armour.py:347-551`)."""
+        spec, cfg, dtype, dev = self.spec, self.cfg, self.dtype, self.device
+        nf = spec.n_factors
+        B = prob.q0.shape[0]
+        q_des = self._t(q_des)
+        t_lim = self._t(spec.torque_limits)
+        pos_lb = self._t(spec.pos_limits_lb + spec.qe)
+        pos_ub = self._t(spec.pos_limits_ub - spec.qe)
+        vel_lb = self._t(-spec.speed_limits + spec.qde)
+        vel_ub = self._t(spec.speed_limits - spec.qde)
+        cont = torch.as_tensor(spec.continuous_joints, device=dev)
+        s_plan = cfg.t_plan / cfg.duration
+        # per-world data broadcast against K (..., B, S, n)
+        q0b, Tqd0b, TTqdd0b = prob.q0[:, None], prob.Tqd0[:, None], prob.TTqdd0[:, None]
+        q_desb = q_des[:, None]
+        t_rad = prob.t_rad[:, None]                              # (B, 1, T, nf)
+
+        def f_fn(K):
+            q_plan = q_des_fn(q0b, Tqd0b, TTqdd0b, prob.k_range * K, s_plan)
+            d = q_plan - q_desb
+            d = torch.where(cont, wrap_to_pi(d), d)
+            return cfg.cost_scale * torch.sum(d * d, dim=-1)
+
+        def pv_fn(K):
+            """Position/velocity-limit block (tiny closed forms)."""
+            mn, mx = joint_position_extrema(q0b, Tqd0b, TTqdd0b, prob.k_range, K)
+            vn, vx = joint_velocity_extrema(q0b, Tqd0b, TTqdd0b, prob.k_range, K, cfg.duration)
+            return torch.cat([pos_lb - mn, mn - pos_ub, pos_lb - mx, mx - pos_ub,
+                              vel_lb - vn, vn - vel_ub, vel_lb - vx, vx - vel_ub], dim=-1)
+
+        def cj_multi(K):
+            """K (B, S, n) -> (c (B, S, m), Jt (B, S, n, m)) with ONE pass
+            over the collision bank for all worlds and starts."""
+            S = K.shape[1]
+            vals, jacs = [], []
+            if prob.u is not None:
+                u_c, _, du = prob.u.slice_with_jac_multi(K)      # (B,S,T,nf), (B,S,n,T,nf)
+                Ju = du.reshape(B, S, nf, -1)
+                vals.append((u_c - (t_lim - t_rad)).reshape(B, S, -1))
+                jacs.append(Ju)
+                vals.append(((-t_lim + t_rad) - u_c).reshape(B, S, -1))
+                jacs.append(-Ju)
+            centers, _, dcenters = prob.links.slice_with_jac_multi(K)
+            g, Jg = collision_constraints_with_jac_multi(prob.hp, centers, dcenters)
+            vals.append(g.reshape(B, S, -1))
+            jacs.append(Jg.reshape(B, S, nf, -1))
+            vals.append(pv_fn(K))
+            jacs.append(jacobian_t(pv_fn, K))
+            return torch.cat(vals, dim=-1), torch.cat(jacs, dim=-1)
+
+        # multi-start: k = 0 (reference init, NLPclass.cu:193-199) + warm
+        # start + random interior points (uarmtd_planner.m:768)
+        if k_rand is None:
+            k_rand = self.random_starts(B, generator)
+        k_warm = torch.zeros((B, nf), dtype=dtype, device=dev) if k_warm is None else self._t(k_warm)
+        K0 = torch.cat([torch.zeros((B, 1, nf), dtype=dtype, device=dev), k_warm[:, None],
+                        self._t(k_rand)], dim=1)
+
+        sol = solve_box_alm_multi(f_fn, cj_multi, K0, outer_iters=cfg.nlp_outer_iters,
+                                  inner_iters=cfg.nlp_inner_iters)
+
+        # strict re-verification, FUSED (`armour.py:485-551`): the solver's
+        # carried constraint values are exact at the final iterates (sol.c)
+        # and at the starts (sol.c0), and the strictly-feasible incumbents
+        # satisfy max c <= 0 < every threshold by construction, so the pool
+        # (final iterates, incumbents, k = 0 and the warm start) is judged
+        # with no extra pass over the bank
+        m = sol.c0.shape[-1]
+        parts = []
+        if prob.u is not None:
+            m_t = int(np.prod(prob.u.c.shape[1:]))
+            parts += [(m_t, cfg.torque_violation_threshold)] * 2
+        m_tail = 8 * nf
+        parts.append((m - sum(p[0] for p in parts) - m_tail, cfg.collision_violation_threshold))
+        parts.append((m_tail, cfg.state_violation_threshold))
+        thr = torch.cat([torch.full((sz,), t, dtype=dtype, device=dev) for sz, t in parts])
+
+        feas0 = torch.all(sol.c0 <= thr, dim=-1)
+        viol0 = torch.amax(sol.c0, dim=-1)
+        pool = torch.cat([sol.k, sol.k_feas, K0[:, :2]], dim=1)   # (B, 2S+2, n)
+        feas = torch.cat([torch.all(sol.c <= thr, dim=-1), sol.found_feas | feas0, feas0[:, :2]], dim=1)
+        viols = torch.cat([torch.amax(sol.c, dim=-1),
+                           torch.where(sol.found_feas, sol.v_feas, viol0), viol0[:, :2]], dim=1)
+        costs = torch.where(feas, f_fn(pool), torch.inf)
+        best = torch.argmin(costs, dim=1, keepdim=True)           # (B, 1)
+        feasible = torch.gather(feas, 1, best)[:, 0]
+        k_best = torch.gather(pool, 1, best[..., None].expand(-1, -1, nf))[:, 0]
+        return PlanResult(
+            k=torch.where(feasible[:, None], k_best, torch.nan),
+            feasible=feasible,
+            cost=torch.gather(costs, 1, best)[:, 0] / cfg.cost_scale,
+            max_violation=torch.gather(viols, 1, best)[:, 0],
+            torque_radius=prob.t_rad,
+        )
+
+    # -- entry points -----------------------------------------------------
+    def plan_batch(self, q0, qd0, qdd0, q_des, zonos, masks, k_rand=None, k_warm=None,
+                   generator: torch.Generator | None = None) -> PlanResult:
+        """Plan B worlds: q0/qd0/qdd0/q_des (B, nf), zonos (B, cap, 4, 3),
+        masks (B, cap); ``k_rand`` (B, S-2, nf) overrides the random starts."""
+        probs = self.build_probs(q0, qd0, qdd0, zonos, masks)
+        return self.solve(probs, q_des, k_rand=k_rand, k_warm=k_warm, generator=generator)
+
+    def plan(self, q0, qd0, qdd0, q_des, obstacles: ObstacleSet, k_rand=None, k_warm=None,
+             generator: torch.Generator | None = None) -> PlanResult:
+        """Plan one world (no culling, as the reference's single-plan
+        program): obstacles.zonos (cap, 4, 3), obstacles.mask (cap,)."""
+        b = obstacle_bucket(obstacles.mask)
+        zonos = self._t(obstacles.zonos)[None, :b]
+        masks = self._t(obstacles.mask, torch.bool)[None, :b]
+        probs = self.build_probs(self._t(q0)[None], self._t(qd0)[None], self._t(qdd0)[None],
+                                 zonos, masks, cull=False)
+        res = self.solve(
+            probs, self._t(q_des)[None],
+            k_rand=None if k_rand is None else self._t(k_rand)[None],
+            k_warm=None if k_warm is None else self._t(k_warm)[None],
+            generator=generator)
+        return PlanResult(*(x[0] for x in res))

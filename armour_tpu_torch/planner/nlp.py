@@ -1,0 +1,143 @@
+"""Batched box-constrained NLP solver: augmented Lagrangian + projected
+Gauss-Newton, all worlds and starts in lockstep.
+
+Port of `armour_tpu/planner/nlp.py:solve_box_alm_multi` (see its docstring
+for the method).  The fixed-length ``lax.scan`` loops become Python loops;
+``jax.grad``/``jax.hessian``/``jax.jacfwd`` become ``torch.func``.  Every
+tensor carries (B worlds, S starts) in front; the constraint Jacobian is
+kept TRANSPOSED, (B, S, n, m), which is the layout the collision kernel
+writes, so the hot loop never transposes it.
+
+Problem form:  min f(k)  s.t.  c(k) <= 0 (one-sided),  k in [-1, 1]^n.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+from torch.func import grad, jvp, vmap
+
+from armour_tpu_torch.ops.linalg import spd_solve_small
+
+
+class ALMResult(NamedTuple):
+    k: torch.Tensor              # (B, S, n) final iterates
+    max_violation: torch.Tensor  # (B, S)
+    cost: torch.Tensor           # (B, S)
+    k_feas: torch.Tensor         # (B, S, n) lowest-cost STRICTLY feasible iterate seen
+    found_feas: torch.Tensor     # (B, S) bool: k_feas is valid (else == the start)
+    c: torch.Tensor              # (B, S, m) exact constraint values at k
+    c0: torch.Tensor             # (B, S, m) exact constraint values at the starts
+    v_feas: torch.Tensor         # (B, S) max constraint value at k_feas (<= 0)
+
+
+def jacobian_t(fn: Callable, K: torch.Tensor) -> torch.Tensor:
+    """Forward-mode Jacobian of ``fn: (..., n) -> (..., m)``, a function
+    that is independent across the leading dims, returned transposed as
+    (..., n, m): one tangent per coordinate, as ``jax.jacfwd`` pushes them."""
+    n = K.shape[-1]
+    eye = torch.eye(n, dtype=K.dtype, device=K.device)
+    tangents = eye.reshape((n,) + (1,) * (K.ndim - 1) + (n,)).expand((n,) + K.shape)
+    jac = vmap(lambda v: jvp(fn, (K,), (v,))[1])(tangents)   # (n, ..., m)
+    return jac.movedim(0, -2)
+
+
+def cost_derivatives(f_fn: Callable, K: torch.Tensor):
+    """Gradient (..., n) and Hessian (..., n, n) of a cost ``f_fn: (..., n)
+    -> (...)`` that is independent across the leading dims (forward over
+    reverse, as ``jax.hessian``)."""
+    g_fn = grad(lambda k: f_fn(k).sum())
+    return g_fn(K), jacobian_t(g_fn, K)
+
+
+def solve_box_alm_multi(
+    f_fn: Callable,
+    cj_fn_multi: Callable,
+    K0: torch.Tensor,
+    outer_iters: int = 8,
+    inner_iters: int = 8,
+    mu0: float = 10.0,
+    mu_growth: float = 4.0,
+    mu_max: float = 1e6,
+    newton_reg: float = 1e-8,
+    ls_steps: int = 4,
+) -> ALMResult:
+    """Start-batched ALM: all S starts of all B worlds advance in lockstep,
+    so the constraint bank is streamed ONCE per Gauss-Newton iteration.
+
+    ``f_fn``: K (..., n) -> (...), independent across leading dims.
+    ``cj_fn_multi``: K (B, S, n) -> (c (B, S, m), Jt (B, S, n, m)).
+    """
+    B, S, n = K0.shape
+    dtype, dev = K0.dtype, K0.device
+    eye_n = torch.eye(n, dtype=dtype, device=dev)
+    shrink = 0.5 ** torch.arange(ls_steps, dtype=dtype, device=dev)
+
+    def penalty(c, lam, mu):  # (..., m), (..., m), (...) -> (...)
+        a = torch.clamp(lam + mu[..., None] * c, min=0.0)
+        return torch.sum(a * a - lam * lam, dim=-1) / (2.0 * mu)
+
+    # Each inner iteration makes exactly ONE bank pass, at the line-search
+    # CANDIDATE; (c, J) at the current iterate are carried, the model line
+    # search picks the candidate, and acceptance is decided on the EXACT
+    # augmented-Lagrangian merit at that candidate.
+    def inner_step(K, c, Jt, lam, mu, scale):
+        a = torch.clamp(lam + mu[..., None] * c, min=0.0)          # (B, S, m)
+        fgrad, fhess = cost_derivatives(f_fn, K)
+        grad_al = fgrad + torch.einsum("bsnm,bsm->bsn", Jt, a)
+        active = (a > 0.0).to(dtype)
+        H = mu[..., None, None] * torch.matmul(Jt * active[:, :, None, :], Jt.transpose(-1, -2))
+        H = H + fhess + (newton_reg + 1e-10) * eye_n
+        dk = -spd_solve_small(H, grad_al)
+        phi0 = f_fn(K) + penalty(c, lam, mu)
+
+        # step length on the linearized constraint model (exact f); `scale`
+        # continues the backtracking sequence across iterations
+        alphas = scale[None] * shrink[:, None, None]              # (A, B, S)
+        K_new = torch.clamp(K[None] + alphas[..., None] * dk[None], -1.0, 1.0)
+        dK = K_new - K[None]                                      # (A, B, S, n)
+        c_lin = c[None] + torch.einsum("bsnm,absn->absm", Jt, dK)
+        a_lin = torch.clamp(lam[None] + mu[None, ..., None] * c_lin, min=0.0)
+        pen = torch.sum(a_lin * a_lin - (lam * lam)[None], dim=-1) / (2.0 * mu)[None]
+        phis = f_fn(K_new) + pen                                  # (A, B, S)
+        best = torch.argmin(phis, dim=0)                          # (B, S)
+        K_cand = torch.gather(K_new, 0, best[None, ..., None].expand(1, B, S, n))[0]
+
+        c_cand, J_cand = cj_fn_multi(K_cand)                      # THE bank pass
+        phi_cand = f_fn(K_cand) + penalty(c_cand, lam, mu)
+        accept = phi_cand < phi0                                  # exact decrease
+        scale = torch.where(accept, 1.0, torch.clamp(scale * 0.5 ** ls_steps, min=1e-6))
+        return (torch.where(accept[..., None], K_cand, K),
+                torch.where(accept[..., None], c_cand, c),
+                torch.where(accept[..., None, None], J_cand, Jt),
+                scale)
+
+    c0, J0 = cj_fn_multi(K0)                                      # init bank pass
+    m = c0.shape[-1]
+    K, c, Jt = K0, c0, J0
+    lam = torch.zeros((B, S, m), dtype=dtype, device=dev)
+    mu = torch.full((B, S), mu0, dtype=dtype, device=dev)
+    prev_viol = torch.full((B, S), torch.inf, dtype=dtype, device=dev)
+    K_feas = K0
+    f_feas = torch.full((B, S), torch.inf, dtype=dtype, device=dev)
+    v_feas = torch.full((B, S), torch.inf, dtype=dtype, device=dev)
+    found = torch.zeros((B, S), dtype=torch.bool, device=dev)
+    for _ in range(outer_iters):
+        scale = torch.ones((B, S), dtype=dtype, device=dev)
+        for _ in range(inner_iters):
+            K, c, Jt, scale = inner_step(K, c, Jt, lam, mu, scale)
+        # c is exact at K (carried from the accepted candidate's pass)
+        viol = torch.amax(torch.clamp(c, min=0.0), dim=-1)
+        f_now = f_fn(K)
+        c_max = torch.amax(c, dim=-1)
+        upd = (c_max <= 0.0) & (f_now < f_feas)
+        K_feas = torch.where(upd[..., None], K, K_feas)
+        f_feas = torch.where(upd, f_now, f_feas)
+        v_feas = torch.where(upd, c_max, v_feas)
+        found = found | upd
+        lam = torch.clamp(lam + mu[..., None] * c, min=0.0)
+        mu = torch.where(viol > 0.25 * prev_viol, torch.clamp(mu * mu_growth, max=mu_max), mu)
+        prev_viol = viol
+    return ALMResult(k=K, max_violation=prev_viol, cost=f_fn(K), k_feas=K_feas,
+                     found_feas=found, c=c, c0=c0, v_feas=v_feas)

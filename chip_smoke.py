@@ -1,0 +1,334 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port of the ARMOUR planner on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases (each prints one JSON line; any failure exits non-zero):
+  1. device   card name and power limit, torch/CUDA versions, TF32 flags
+  2. build    nvcc build of armour_tpu_torch/csrc/collision_bank.cu
+  3. kernels  each of the three collision kernels against its plain PyTorch
+              version on a bank built by the planner's own main path
+              (seed 0, B=128, T=128, bucket 8, bf16 A; then an f64 bank),
+              with CUDA-event times, bytes moved and the memory/compute bound
+  4. main     ArmourPlanner.plan_batch at B=128, T=128, 8 obstacles: time,
+              feasibility and kernel launches per plan; then the 40-obstacle
+              point and the batch-1 latency; then the collision check of the
+              returned plans (values_multi and single-start value_jac)
+  5. parity   plan() on the card against plan() on the CPU, 4 worlds, T=32, f64
+The last lines are the kernel table as JSON, the nvidia-smi line, and
+{"ok": true, "device": {...}}.  Longer output goes to chiprun_out/.
+"""
+
+import dataclasses
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+# peak memory bandwidth (bytes/s) and float32 rate outside the tensor cores
+# (FLOP/s) of the cards this script has run on, from NVIDIA's data sheet
+# (dense, no sparsity, 700 W); another card needs its own row first
+_PEAKS = (
+    ("H100 80GB HBM3", 3.35e12, 67e12),  # H100 SXM5
+)
+_OPS_PER_PIECE = 10  # per (slot, start, pair): 3 mul + 2 add (A.c), 2 sub, 1 neg, 2 compares
+_OPS_PER_JAC = 5     # per (slot, start, k): 3 mul + 2 add
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def peaks(name: str):
+    for key, bw, fl in _PEAKS:
+        if key in name:
+            return key, bw, fl
+    raise RuntimeError(f"no peak figures for card {name!r}")
+
+
+def time_ms(torch, fn, reps=20, warmup=3) -> float:
+    """Median CUDA-event time of one call, after a warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def wall(torch, fn, reps):
+    """Median host wall time (s) of fn() ending in a device synchronise."""
+    times, out = [], None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times), out
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    try:
+        import armour_tpu_torch  # noqa: F401  (sets the TF32 flags)
+    except ImportError as e:
+        print(f"chip_smoke: the armour_tpu_torch package is missing ({e})", file=sys.stderr)
+        return 2
+    from armour_tpu_torch.collision import kernels
+    from armour_tpu_torch.collision.zonotope import (
+        ObstacleSet,
+        collision_constraints_with_jac,
+        collision_values_multi,
+        kernel_layout,
+        mask_dead,
+    )
+    from armour_tpu_torch.config import PlannerConfig
+    from armour_tpu_torch.planner.armour import ArmourPlanner
+    from armour_tpu_torch.problems import problem_set
+    from armour_tpu_torch.robots.kinova import kinova_gen3_spec
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    t_start = time.perf_counter()
+
+    # ---- 1. device -------------------------------------------------------
+    smi = nvidia_smi()
+    card = torch.cuda.get_device_name(0)
+    peak_key, peak_bw, peak_f32 = peaks(card)
+    tf32 = {"matmul": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn": torch.backends.cudnn.allow_tf32}
+    emit({"phase": "device", "nvidia_smi": smi, "device_name": card,
+          "device_count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda, "python": sys.version.split()[0], "allow_tf32": tf32,
+          "peaks_row": peak_key, "peak_bytes_per_s": peak_bw, "peak_f32_flops": peak_f32})
+    assert not tf32["matmul"] and not tf32["cudnn"], "TF32 must be off"
+
+    # ---- 2. build --------------------------------------------------------
+    info = kernels.build(verbose=True)
+    with open(os.path.join(out_dir, "collision_bank_ptxas.txt"), "w") as f:
+        f.write(info["log"])
+    regs = sorted({ln.split("Used")[1].strip() for ln in info["log"].splitlines() if "Used" in ln})
+    emit({"phase": "build", "seconds": round(info["seconds"], 3), "built": info["built"],
+          "library": os.path.relpath(info["path"]), "ptxas_used": regs[:12]})
+
+    spec = kinova_gen3_spec()
+    cfg = PlannerConfig()
+    dev = "cuda"
+    B, S, n = 128, cfg.nlp_num_starts, spec.n_factors
+
+    # ---- 3. kernels against their plain versions -------------------------
+    probs8 = problem_set(cfg, B, n_obs=8, seed=0, device=dev)
+    K_np = np.random.default_rng(1).uniform(-0.9, 0.9, (B, S, n))
+    rows = {}
+    for dtype, tol in ((torch.float32, 2e-6), (torch.float64, 1e-12)):
+        planner = ArmourPlanner(spec, cfg, dtype=dtype, device=dev)
+        prob = planner.build_probs(probs8.q0, probs8.qd0, probs8.qdd0, probs8.zonos, probs8.masks)
+        hp = prob.hp
+        K = torch.as_tensor(K_np, dtype=dtype, device=dev)
+        centers, _, dcenters = prob.links.slice_with_jac_multi(K)
+        c, dc = kernel_layout(centers, dcenters)
+        unique = kernels.tie_mask(hp.A, hp.dpos, hp.dneg, c, tol=1e-5)  # (B, S, L, O, T)
+        cases = (
+            (kernels.fused_collision_value_jac_multi, (hp.A, hp.dpos, hp.dneg, c, dc), True, unique),
+            (kernels.fused_collision_values_multi, (hp.A, hp.dpos, hp.dneg, c), False, unique),
+            (kernels.fused_collision_value_jac,
+             (hp.A, hp.dpos, hp.dneg, c[:, 0].contiguous(), dc[:, 0].contiguous()), True,
+             unique[:, :1]),
+        )
+        for kern, args, jac, uniq in cases:
+            name = kern.__name__
+            plain = kernels.PLAIN[kern]
+            got, ref = kern(*args), plain(*args)
+            torch.cuda.synchronize()
+            single = kern is kernels.fused_collision_value_jac
+            if jac:
+                gk, Jk = got
+                gp, Jp = ref
+                if single:
+                    gk, Jk, gp, Jp = gk[:, None], Jk[:, None], gp[:, None], Jp[:, None]
+                gk, Jk = mask_dead(hp, gk, Jk)
+                gp, Jp = mask_dead(hp, gp, Jp)
+                u = uniq[:, :, None]
+                err_g = (gk - gp).abs().max().item()
+                err_J = ((Jk - Jp).abs() * u).max().item()
+            else:
+                err_g = (mask_dead(hp, got) - mask_dead(hp, ref)).abs().max().item()
+                err_J = 0.0
+            ok = err_g <= tol and err_J <= tol and bool(torch.isfinite(gk if jac else got).all())
+            row = rows.setdefault(name, {})
+            row[f"max_abs_err_{str(dtype)[6:]}"] = max(err_g, err_J)
+            emit({"phase": "kernel_check", "kernel": name, "dtype": str(dtype)[6:],
+                  "A_dtype": str(hp.A.dtype)[6:], "shape_bank": list(hp.A.shape),
+                  "err_g": err_g, "err_J_tie_masked": err_J, "atol": tol,
+                  "unique_fraction": round(float(uniq.float().mean()), 6), "ok": ok})
+            assert ok, f"{name} disagrees with its plain version in {dtype}"
+            if dtype != torch.float32:
+                continue
+            # times at the main path's shapes (f32 offsets, bf16 A)
+            outs = got if jac else (got,)
+            Sx = 1 if single else S
+            Bk, P, _, L, O, T = hp.A.shape
+            ops = Bk * Sx * L * O * T * (P * _OPS_PER_PIECE + (n * _OPS_PER_JAC if jac else 0))
+            moved = nbytes(*args, *outs)
+            b_mem, b_ops = moved / peak_bw * 1e3, ops / peak_f32 * 1e3
+            row.update({
+                "name": name, "route": "cuda",
+                "source": "armour_tpu_torch/csrc/collision_bank.cu",
+                "ms": time_ms(torch, lambda: kern(*args)),
+                "plain_ms": time_ms(torch, lambda: plain(*args), reps=20, warmup=2),
+                "bytes": moved, "ops": ops,
+                "bound_ms": max(b_mem, b_ops), "bound_by": "bytes" if b_mem >= b_ops else "operations",
+                "library_ms": None,
+                "shapes": {"B": Bk, "S": Sx, "n": n, "P": P, "L": L, "O": O, "T": T},
+            })
+            emit({"phase": "kernel_time", **{k: row[k] for k in
+                  ("name", "ms", "plain_ms", "bytes", "bound_ms", "bound_by", "shapes")}})
+        del planner, prob, hp, c, dc, centers, dcenters, unique
+        torch.cuda.empty_cache()
+    rows["fused_collision_value_jac_multi"]["replaces"] = "armour_tpu/collision/pallas_kernel.py:166"
+    rows["fused_collision_values_multi"]["replaces"] = "armour_tpu/collision/pallas_kernel.py:225"
+    rows["fused_collision_value_jac"]["replaces"] = "armour_tpu/collision/pallas_kernel.py:85"
+
+    # ---- 4. main path ----------------------------------------------------
+    planner = ArmourPlanner(spec, cfg, dtype=torch.float32, device=dev)
+    passes = cfg.nlp_outer_iters * cfg.nlp_inner_iters + 1
+    main_name = "fused_collision_value_jac_multi"
+
+    def run_point(probs, label, reps=3):
+        args = (probs.q0, probs.qd0, probs.qdd0, probs.q_des, probs.zonos, probs.masks)
+        planner.plan_batch(*args)                               # warm-up
+        torch.cuda.synchronize()
+        secs, deltas, res = [], [], None
+        for _ in range(reps):
+            kernels.reset_launch_counts()
+            dt, res = wall(torch, lambda: planner.plan_batch(*args), 1)
+            deltas.append(kernels.launch_counts())
+            secs.append(dt)
+        for d in deltas:
+            assert d[main_name] == passes, f"{label}: {d} launches, expected {passes}"
+        t_build, prob = wall(torch, lambda: planner.build_probs(*args[:3], *args[4:]), 1)
+        t_solve, _ = wall(torch, lambda: planner.solve(prob, probs.q_des), 1)
+        feas = res.feasible.cpu().numpy()
+        k = res.k.cpu().numpy()
+        assert np.all(np.isfinite(k[feas])) and np.all(np.isnan(k[~feas]))
+        assert np.all(np.abs(k[feas]) <= 1.0)
+        sec = statistics.median(secs)
+        emit({"phase": "main_path", "point": label, "batch": B,
+              "T": cfg.num_time_steps, "seconds_per_batch": sec, "seconds_runs": secs,
+              "plans_per_s": B / sec, "feasible_fraction": float(feas.mean()),
+              "bucket": int(prob.hp.dpos.shape[-2]), "launches_per_plan_batch": deltas[-1],
+              "build_s": t_build, "solve_s": t_solve,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+        return res, prob, deltas[-1]
+
+    torch.cuda.reset_peak_memory_stats()
+    res8, prob8, counts8 = run_point(probs8, "8obs")
+    for r in rows.values():
+        r["launches"] = counts8[r["name"]]
+    probs40 = problem_set(cfg, B, n_obs=40, seed=7, device=dev)
+    run_point(probs40, "40obs")
+
+    q0_0 = probs8.q0[0]
+    obs1 = ObstacleSet(probs8.zonos[0], probs8.masks[0])
+    lat, _ = wall(torch, lambda: planner.plan(q0_0, np.zeros(7), np.zeros(7), q0_0 + 0.05, obs1), 1)
+    lats = [wall(torch, lambda i=i: planner.plan(probs8.q0[i], np.zeros(7), np.zeros(7),
+                                                 probs8.q0[i] + 0.05, obs1), 1)[0]
+            for i in range(10)]
+    emit({"phase": "latency_batch1", "median_ms": statistics.median(lats) * 1e3,
+          "runs_ms": [x * 1e3 for x in lats]})
+
+    # the collision check of the returned plans: the user-level check path,
+    # through the value-only and single-start kernels
+    kernels.reset_launch_counts()
+    feas = res8.feasible
+    k_chk = torch.where(feas[:, None], res8.k, 0.0)
+    centers, _, dcenters = prob8.links.slice_with_jac_multi(k_chk[:, None])
+    g_multi = collision_values_multi(prob8.hp, centers)                       # (B,1,L,O,T)
+    g_one, _ = collision_constraints_with_jac(prob8.hp, centers[:, 0], dcenters[:, 0])
+    torch.cuda.synchronize()
+    check_counts = kernels.launch_counts()
+    worst = g_multi.flatten(1).amax(1)
+    assert torch.equal(g_multi[:, 0], g_one), "the two check kernels disagree"
+    assert bool((worst[feas] <= cfg.collision_violation_threshold).all()), \
+        "a plan reported feasible violates the collision constraint"
+    for name in ("fused_collision_values_multi", "fused_collision_value_jac"):
+        assert check_counts[name] == 1, check_counts
+        rows[name]["launches"] = check_counts[name]
+    emit({"phase": "check_path", "launches": check_counts,
+          "max_collision_value_feasible": float(worst[feas].max()) if bool(feas.any()) else None,
+          "feasible": int(feas.sum())})
+
+    # ---- 5. card against CPU on the same path ----------------------------
+    cfg32 = dataclasses.replace(cfg, num_time_steps=32)
+    probs4 = problem_set(cfg32, 4, n_obs=8, seed=0, device=dev)
+    k_rand = np.random.default_rng(2).uniform(-0.6, 0.6, (4, max(S - 2, 1), n))
+    gpu_pl = ArmourPlanner(spec, cfg32, dtype=torch.float64, device=dev)
+    cpu_pl = ArmourPlanner(spec, cfg32, dtype=torch.float64, device="cpu")
+    diffs, same = [], []
+    kernels.reset_launch_counts()
+    for i in range(4):
+        obs = ObstacleSet(probs4.zonos[i], probs4.masks[i])
+        args = (probs4.q0[i], probs4.qd0[i], probs4.qdd0[i], probs4.q_des[i], obs)
+        rg = gpu_pl.plan(*args, k_rand=k_rand[i])
+        rc = cpu_pl.plan(*args, k_rand=k_rand[i])
+        fg, fc = bool(rg.feasible), bool(rc.feasible)
+        same.append(fg == fc)
+        kg, kc = rg.k.cpu().numpy(), rc.k.numpy()
+        diffs.append(float(np.abs(kg - kc).max()) if fg and fc else 0.0)
+        assert fg == fc, f"world {i}: card feasible={fg}, CPU feasible={fc}"
+        assert fg or (np.isnan(kg).all() and np.isnan(kc).all())
+        assert diffs[-1] <= 1e-6, f"world {i}: |k_card - k_cpu| = {diffs[-1]}"
+    card_launches = kernels.launch_counts()[main_name]
+    assert card_launches == 4 * passes, card_launches
+    emit({"phase": "card_vs_cpu", "worlds": 4, "T": 32, "dtype": "float64",
+          "feasible_equal": all(same), "max_abs_k_diff": max(diffs), "atol": 1e-6,
+          "card_kernel_launches": card_launches})
+
+    # ---- tail ------------------------------------------------------------
+    order = ("fused_collision_value_jac_multi", "fused_collision_values_multi",
+             "fused_collision_value_jac")
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    table = []
+    for name in order:
+        r = dict(rows[name], max_abs_err=rows[name]["max_abs_err_float32"])
+        table.append({k: r[k] for k in keys})
+    with open(os.path.join(out_dir, "chip_smoke_kernels.json"), "w") as f:
+        json.dump({"nvidia_smi": smi, "rows": rows}, f, indent=1)
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+    emit({"kernels": table})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": card,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,156 @@
+"""The port stands alone and runs where it is told to.
+
+- Importing every module of ``armour_tpu_torch`` loads neither ``jax`` nor
+  any module of ``armour_tpu`` (checked in a fresh interpreter), and no
+  source of the port or ``chip_smoke.py`` imports them.
+- An entry point called without ``device=`` on a machine without CUDA
+  raises instead of running on the CPU.
+- A kernel wrapper given CPU tensors runs the plain version and launches
+  nothing; given tensors on any other non-CUDA device it raises.
+- ``chip_smoke.py`` exits non-zero and prints no result line without CUDA,
+  also from a directory that holds nothing else of the repo.
+"""
+
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import armour_tpu_torch
+from armour_tpu_torch import convert
+from armour_tpu_torch.collision import kernels
+from armour_tpu_torch.config import PlannerConfig
+from armour_tpu_torch.device import resolve_device
+from armour_tpu_torch.planner.armour import ArmourPlanner
+from armour_tpu_torch.problems import problem_set
+from armour_tpu_torch.robots.kinova import kinova_gen3_spec
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = Path(armour_tpu_torch.__file__).resolve().parent
+_FORBIDDEN = re.compile(r"^\s*(import\s+(jax|armour_tpu)\b(?!_torch)|from\s+(jax|armour_tpu)\b(?!_torch))",
+                        re.MULTILINE)
+
+
+def _modules():
+    return sorted(
+        "armour_tpu_torch." + ".".join(p.relative_to(PKG).with_suffix("").parts).replace(".__init__", "")
+        for p in PKG.rglob("*.py")
+    )
+
+
+def test_import_loads_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'armour_tpu' or m.startswith('armour_tpu.'))\n"
+        "print(len([m for m in sys.modules if m.startswith('armour_tpu_torch')]), bad)\n"
+    )
+    # -I: ignore PYTHONPATH and user site, so nothing injected at start-up
+    out = subprocess.run([sys.executable, "-I", "-c", code], capture_output=True, text=True,
+                         timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    n_loaded, bad = out.stdout.split(maxsplit=1)
+    assert int(n_loaded) >= len(_modules()) - 1
+    assert bad.strip() == "[]", bad
+
+
+def test_sources_import_no_jax():
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    offenders = [str(f) for f in files if _FORBIDDEN.search(f.read_text())]
+    assert offenders == []
+    assert _FORBIDDEN.search("from armour_tpu.ops import pz") and _FORBIDDEN.search("import jax.numpy")
+    assert not _FORBIDDEN.search("from armour_tpu_torch.ops import pz")
+
+
+def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = PlannerConfig(num_time_steps=16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ArmourPlanner(kinova_gen3_spec(), cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        problem_set(cfg, 2)
+    bank = (np.zeros((36, 3, 1, 1, 2)), np.zeros((36, 1, 1, 2)), np.zeros((36, 1, 1, 2)), [True])
+    pz = (np.zeros(3), np.zeros((2, 3)), np.zeros(3), (0, 1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.bank_from_numpy(*bank)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.packed_pz_from_numpy(*pz)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.problem_from_numpy(pz, None, bank, 0.0, *np.zeros((4, 7)), np.ones((7, 2)))
+    assert convert.bank_from_numpy(*bank, device="cpu").A.device == torch.device("cpu")
+    assert ArmourPlanner(kinova_gen3_spec(), cfg, device="cpu").device == torch.device("cpu")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_tf32_is_off():
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def _bank(device, rng):
+    B, S, n, P, L, O, T = 2, 3, 7, 36, 2, 3, 5
+    A = torch.as_tensor(rng.normal(size=(B, P, 3, L, O, T)), dtype=torch.float32).to(torch.bfloat16)
+    dpos, dneg = (torch.as_tensor(rng.normal(size=(B, P, L, O, T)), dtype=torch.float32) for _ in "ab")
+    c = torch.as_tensor(rng.normal(size=(B, S, 3, L, T)), dtype=torch.float32)
+    dc = torch.as_tensor(rng.normal(size=(B, S, n, 3, L, T)), dtype=torch.float32)
+    return tuple(t.to(device) for t in (A, dpos, dneg, c, dc))
+
+
+def test_kernel_wrappers_take_the_plain_version_on_cpu_only(rng):
+    A, dpos, dneg, c, dc = _bank("cpu", rng)
+    kernels.reset_launch_counts()
+    cases = [
+        (kernels.fused_collision_value_jac_multi, (A, dpos, dneg, c, dc)),
+        (kernels.fused_collision_values_multi, (A, dpos, dneg, c)),
+        (kernels.fused_collision_value_jac, (A, dpos, dneg, c[:, 0], dc[:, 0])),
+    ]
+    for kern, args in cases:
+        got, ref = kern(*args), kernels.PLAIN[kern](*args)
+        for g, r in zip(got if isinstance(got, tuple) else (got,), ref if isinstance(ref, tuple) else (ref,)):
+            assert torch.equal(g, r)
+    assert kernels.launch_counts() == {k.__name__: 0 for k in kernels.KERNELS}
+    # not the CPU and not CUDA: no silent plain version
+    meta = _bank("meta", rng)
+    with pytest.raises(ValueError, match="all must be on the CPU or all on one CUDA device"):
+        kernels.fused_collision_value_jac_multi(*meta)
+    with pytest.raises(ValueError):
+        kernels.fused_collision_values_multi(A, dpos, dneg, c.to("meta"))
+    with pytest.raises(ValueError, match=r"dpos must be"):
+        kernels.fused_collision_values_multi(A, dpos[:, :-1], dneg, c)
+    with pytest.raises(TypeError):
+        kernels.fused_collision_values_multi(A.double(), dpos, dneg, c)
+    assert kernels.launch_counts() == {k.__name__: 0 for k in kernels.KERNELS}
+
+
+def test_library_is_built_into_an_ignored_directory():
+    path = kernels.library_path()
+    assert path.parent == PKG / "build" and path.suffix == ".so"
+    assert "armour_tpu_torch/build/" in (ROOT / ".gitignore").read_text().split()
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_a_card(tmp_path, alone):
+    src = ROOT / "chip_smoke.py"
+    if alone:
+        shutil.copy(src, tmp_path / "chip_smoke.py")
+        cwd, script = tmp_path, tmp_path / "chip_smoke.py"
+    else:
+        cwd, script = ROOT, src
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, str(script)], capture_output=True, text=True,
+                         timeout=300, cwd=cwd, env=env)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+    assert not any(ln.startswith("{") for ln in out.stdout.splitlines())

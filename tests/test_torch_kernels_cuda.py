@@ -1,0 +1,138 @@
+"""The CUDA collision kernels against their plain PyTorch versions, on the card.
+
+Runs only where a CUDA device is present (marker ``cuda``; elsewhere each
+test skips).  This file imports no JAX, so it runs on a machine without it:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
+
+Random banks cover every (A, offsets) type pair the kernels take, the
+obstacle buckets 8, 16 and 40, time axes that are not a multiple of the
+block, 1 to 8 starts, and banks with NaN offsets (a pair with a NaN never
+wins; a slot with none usable keeps g = 1e30, J = 0).  Tolerances: float32 offsets atol 2e-6 and
+float64 atol 1e-12 on values of order 1 (the kernel fuses multiply-adds
+where the plain version rounds each product); Jacobians on the slots
+whose winning piece is unique by more than 1e-5 (elsewhere either piece
+is a valid subgradient).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from armour_tpu_torch.collision import kernels
+
+pytestmark = pytest.mark.cuda
+
+TYPES = [(torch.bfloat16, torch.float32), (torch.float32, torch.float32),
+         (torch.bfloat16, torch.float64), (torch.float32, torch.float64),
+         (torch.float64, torch.float64)]
+SHAPES = [  # B, S, n, L, O, T
+    (3, 4, 7, 7, 40, 128),
+    (2, 1, 7, 7, 8, 37),
+    (1, 8, 3, 2, 3, 200),
+    (2, 5, 7, 7, 16, 129),
+]
+ATOL = {torch.float32: 2e-6, torch.float64: 1e-12}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run on the card with "
+                    "python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py")
+    return torch.device("cuda")
+
+
+def _bank(shape, a_dtype, o_dtype, seed, device):
+    B, S, n, L, O, T = shape
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(B, 36, 3, L, O, T))
+    A /= np.linalg.norm(A, axis=2, keepdims=True)
+    arrays = (A, rng.normal(size=(B, 36, L, O, T)), rng.normal(size=(B, 36, L, O, T)),
+              rng.normal(size=(B, S, 3, L, T)), rng.normal(size=(B, S, n, 3, L, T)))
+    dtypes = (a_dtype, o_dtype, o_dtype, o_dtype, o_dtype)
+    return tuple(torch.as_tensor(x, dtype=torch.float64).to(dt).to(device)
+                 for x, dt in zip(arrays, dtypes))
+
+
+def _poison(dpos, dneg, seed):
+    """NaN into about 1 % of the offsets, and into every pair of one slot."""
+    gen = torch.Generator(device=dpos.device).manual_seed(seed)
+    hit = torch.rand(dpos.shape, generator=gen, device=dpos.device) < 0.01
+    dpos.masked_fill_(hit, torch.nan)
+    dneg[0, :, 0, 0, 0] = torch.nan
+
+
+@pytest.mark.parametrize("nan", [False, True], ids=["finite", "nan"])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("types", TYPES, ids=lambda t: f"{str(t[0])[6:]}-{str(t[1])[6:]}")
+def test_kernels_match_plain(card, shape, types, nan):
+    A, dpos, dneg, c, dc = _bank(shape, *types, seed=sum(shape), device=card)
+    if nan:
+        _poison(dpos, dneg, seed=sum(shape))
+    atol = ATOL[types[1]]
+    uniq = kernels.tie_mask(A, dpos, dneg, c, tol=1e-5)
+    kernels.reset_launch_counts()
+
+    g, J = kernels.fused_collision_value_jac_multi(A, dpos, dneg, c, dc)
+    gp, Jp = kernels.value_jac_multi_plain(A, dpos, dneg, c, dc)
+    torch.cuda.synchronize()
+    assert (g - gp).abs().max().item() <= atol
+    assert ((J - Jp).abs() * uniq[:, :, None]).max().item() <= atol
+    assert bool(torch.isfinite(g).all()) and bool(torch.isfinite(J).all())
+
+    gv = kernels.fused_collision_values_multi(A, dpos, dneg, c)
+    assert (gv - kernels.values_multi_plain(A, dpos, dneg, c)).abs().max().item() <= atol
+    assert torch.equal(gv, g)
+
+    c1, dc1 = c[:, 0].contiguous(), dc[:, 0].contiguous()
+    g1, J1 = kernels.fused_collision_value_jac(A, dpos, dneg, c1, dc1)
+    g1p, J1p = kernels.value_jac_plain(A, dpos, dneg, c1, dc1)
+    torch.cuda.synchronize()
+    assert (g1 - g1p).abs().max().item() <= atol
+    assert ((J1 - J1p).abs() * uniq[:, 0, None]).max().item() <= atol
+    assert torch.equal(g1, g[:, 0]) and torch.equal(J1, J[:, 0])
+    assert kernels.launch_counts() == {k.__name__: 1 for k in kernels.KERNELS}
+
+
+def test_first_maximum_wins_and_nan_never_wins(card):
+    """An exact tie keeps the first pair (strict '>'); a piece with a NaN
+    offset is skipped, so the slot takes the best of the others."""
+    shape = (1, 2, 2, 1, 2, 4)
+    A, dpos, dneg, c, dc = _bank(shape, torch.float64, torch.float64, seed=0, device=card)
+    A.zero_()
+    A[:, 0, 0] = 1.0
+    A[:, 1, 1] = 1.0
+    dpos.fill_(10.0)
+    dneg.fill_(10.0)
+    dpos[:, 0] = 0.0
+    dpos[:, 1] = 0.0
+    c.zero_()
+    c[:, :, 0] = 0.5
+    c[:, :, 1] = 0.5                        # pairs 0 and 1 tie at v = 0.5
+    g, J = kernels.fused_collision_value_jac_multi(A, dpos, dneg, c, dc)
+    torch.cuda.synchronize()
+    assert torch.all(g == -0.5)
+    # pair 0 won on its + branch: signed normal (-1, 0, 0)
+    torch.testing.assert_close(J, -dc[:, :, :, 0, :, None, :].expand_as(J), rtol=0, atol=0)
+
+    dpos[:, 0, :, 1, 2] = torch.nan        # (l=0, o=1, t=2): pair 0 unusable there
+    g2, J2 = kernels.fused_collision_value_jac_multi(A, dpos, dneg, c, dc)
+    torch.cuda.synchronize()
+    assert torch.all(g2 == -0.5)
+    # there pair 1 won: signed normal (0, -1, 0)
+    torch.testing.assert_close(J2[..., 0, 1, 2], -dc[:, :, :, 1, 0, 2], rtol=0, atol=0)
+    g2p, J2p = kernels.value_jac_multi_plain(A, dpos, dneg, c, dc)
+    assert torch.equal(g2, g2p) and torch.equal(J2, J2p)
+
+
+def test_wrappers_refuse_what_the_kernel_does_not_take(card):
+    A, dpos, dneg, c, dc = _bank((1, 2, 7, 7, 8, 16), torch.bfloat16, torch.float32, 1, card)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.fused_collision_values_multi(A, dpos, dneg, c.transpose(-1, -2).contiguous().transpose(-1, -2))
+    with pytest.raises(ValueError, match="at most"):
+        kernels.fused_collision_values_multi(A, dpos, dneg, c[:, :1].expand(1, 9, 3, 7, 16).contiguous())
+    with pytest.raises(ValueError, match="all must be on the CPU"):
+        kernels.fused_collision_values_multi(A, dpos.cpu(), dneg, c)
+    with pytest.raises(TypeError):
+        kernels.fused_collision_values_multi(A, dpos, dneg, c.double())
