@@ -1,5 +1,6 @@
-"""armour_tpu_torch — the ARMOUR planner in PyTorch, with the collision
-bank pass as hand-written CUDA for Hopper (sm_90a).
+"""armour_tpu_torch — the ARMOUR planner, its low-level controllers and the
+plant simulation in PyTorch, with the collision bank pass as hand-written
+CUDA for Hopper (sm_90a).
 
 A second implementation beside the JAX package ``armour_tpu``, which stays
 the numerical reference.  The layout mirrors it module for module; every

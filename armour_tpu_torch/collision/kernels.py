@@ -41,7 +41,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1, torch.float64: 2}
-_MAX_STARTS = 8
+_MAX_STARTS = 8         # value + Jacobian kernels: starts per launch
+_MAX_VALUE_STARTS = 16  # values-only kernel: starts per launch; more go in chunks
 _START = -1e30  # the running max's start value
 
 
@@ -49,8 +50,11 @@ _START = -1e30  # the running max's start value
 # plain versions (CPU path, and the yardstick the kernels are checked against)
 # ---------------------------------------------------------------------------
 
-def _pieces(A, dpos, dneg, c):
-    """vp, vn: (B, S, P, L, O, T) for A (B,P,3,L,O,T) and c (B,S,3,L,T)."""
+def pieces(A, dpos, dneg, c):
+    """The 2P affine separation pieces vp = A.c - dpos, vn = -A.c - dneg:
+    each (B, S, P, L, O, T) for A (B,P,3,L,O,T) and c (B,S,3,L,T).  A bf16
+    bank is upcast to the offsets' type first (``torch`` does not promote
+    as ``jnp`` does)."""
     Af = A.to(dpos.dtype)[:, None]                       # (B, 1, P, 3, L, O, T)
     cc = c[:, :, None, :, :, None, :]                    # (B, S, 1, 3, L, 1, T)
     Ac = Af[:, :, :, 0] * cc[:, :, :, 0] + Af[:, :, :, 1] * cc[:, :, :, 1] + Af[:, :, :, 2] * cc[:, :, :, 2]
@@ -72,7 +76,7 @@ def tie_mask(A, dpos, dneg, c, tol=1e-5):
     left out) leads the second by more than ``tol``.  Elsewhere the winner
     is a tie and either normal is a valid subgradient, so Jacobians are
     compared only here."""
-    vp, vn = _pieces(A, dpos, dneg, c)
+    vp, vn = pieces(A, dpos, dneg, c)
     bad = torch.isnan(vp) | torch.isnan(vn)              # pairs that never win
     both = torch.cat([vp.masked_fill(bad, -torch.inf), vn.masked_fill(bad, -torch.inf)], dim=2)
     top2 = torch.topk(both, 2, dim=2).values
@@ -82,7 +86,7 @@ def tie_mask(A, dpos, dneg, c, tol=1e-5):
 def value_jac_multi_plain(A, dpos, dneg, c, dc):
     """Plain version of `fused_collision_value_jac_multi`:
     g (B,S,L,O,T), J (B,S,n,L,O,T)."""
-    vp, vn = _pieces(A, dpos, dneg, c)
+    vp, vn = pieces(A, dpos, dneg, c)
     best, idx, won = _piece_max(vp, vn)
     sign = torch.where(torch.gather(vp >= vn, 2, idx), -1.0, 1.0).to(dpos.dtype)
     sign = torch.where(won, sign, 0.0)
@@ -95,7 +99,7 @@ def value_jac_multi_plain(A, dpos, dneg, c, dc):
 
 def values_multi_plain(A, dpos, dneg, c):
     """Plain version of `fused_collision_values_multi`: g (B,S,L,O,T)."""
-    return -_piece_max(*_pieces(A, dpos, dneg, c))[0][:, :, 0]
+    return -_piece_max(*pieces(A, dpos, dneg, c))[0][:, :, 0]
 
 
 def value_jac_plain(A, dpos, dneg, c, dc):
@@ -203,11 +207,9 @@ def _check_starts(name, t, shape, dtype):
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
 
 
-def _check_launchable(S, *tensors):
+def _check_contiguous(*tensors):
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("collision kernels take contiguous tensors only")
-    if S > _MAX_STARTS:
-        raise ValueError(f"at most {_MAX_STARTS} starts, got {S}")
 
 
 def _ptr(t: torch.Tensor) -> int:
@@ -243,19 +245,26 @@ def fused_collision_value_jac_multi(A, dpos, dneg, c, dc):
     _check_starts("dc", dc, (B, S, n, 3, L, T), dpos.dtype)
     if _on_cpu(A, dpos, dneg, c, dc):
         return value_jac_multi_plain(A, dpos, dneg, c, dc)
-    _check_launchable(S, A, dpos, dneg, c, dc)
+    _check_contiguous(A, dpos, dneg, c, dc)
+    if S > _MAX_STARTS:
+        raise ValueError(f"at most {_MAX_STARTS} starts with the Jacobian, got {S}")
     fused_collision_value_jac_multi.launches += 1
     return _launch_value_jac_multi(A, dpos, dneg, c, dc)
 
 
 def fused_collision_values_multi(A, dpos, dneg, c):
-    """Values only for S starts in one pass: c (B,S,3,L,T) -> g (B,S,L,O,T)."""
+    """Values only for S starts: c (B,S,3,L,T) -> g (B,S,L,O,T).  Up to 16
+    starts (the planner's verification pool of 2S + 2 candidates) are one
+    pass over the bank; more are split into chunks of 16, one launch each."""
     B, P, L, O, T = _check_bank(A, dpos, dneg)
     S = c.shape[1]
     _check_starts("c", c, (B, S, 3, L, T), dpos.dtype)
     if _on_cpu(A, dpos, dneg, c):
         return values_multi_plain(A, dpos, dneg, c)
-    _check_launchable(S, A, dpos, dneg, c)
+    _check_contiguous(A, dpos, dneg, c)
+    if S > _MAX_VALUE_STARTS:
+        return torch.cat([fused_collision_values_multi(A, dpos, dneg, c[:, s:s + _MAX_VALUE_STARTS].contiguous())
+                          for s in range(0, S, _MAX_VALUE_STARTS)], dim=1)
     g = torch.empty((B, S, L, O, T), dtype=dpos.dtype, device=dpos.device)
     lib = _lib()
     fused_collision_values_multi.launches += 1
@@ -276,7 +285,7 @@ def fused_collision_value_jac(A, dpos, dneg, c, dc):
     _check_starts("dc", dc, (B, n, 3, L, T), dpos.dtype)
     if _on_cpu(A, dpos, dneg, c, dc):
         return value_jac_plain(A, dpos, dneg, c, dc)
-    _check_launchable(1, A, dpos, dneg, c, dc)
+    _check_contiguous(A, dpos, dneg, c, dc)
     fused_collision_value_jac.launches += 1
     g, J = _launch_value_jac_multi(A, dpos, dneg, c[:, None], dc[:, None])
     return g[:, 0], J[:, 0]

@@ -10,6 +10,9 @@ of every tensor:
   over the hyperplanes, argmax-select Jacobian) goes through
   ``collision/kernels.py``: the CUDA kernels on the card, their plain
   PyTorch versions on the CPU.
+- ``collision_constraint_values`` (differentiable hard max) and
+  ``smooth_collision_constraints_with_jac`` (log-sum-exp bound) are plain
+  tensor code in the JAX package too, and are plain PyTorch here.
 
 Layout: the bank keeps (obstacle, time) as the trailing two dims, so a
 thread per (b, l, o, t) reads it coalesced along T.
@@ -17,6 +20,7 @@ thread per (b, l, o, t) reads it coalesced along T.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -34,6 +38,9 @@ _PAIR_B = [p[1] for p in _PAIRS]
 
 _EXCLUDED = -1e8  # sentinel for degenerate / masked hyperplanes
 DEAD_SLOT_VALUE = -1e3  # constraint value of a masked obstacle slot
+# smooth mode holds the (B, S, 2P, L, O, T) pieces and a few temporaries of
+# their size; starts are processed in chunks whose pieces stay under this
+_SMOOTH_PIECES_BYTES = 2 << 30
 
 
 class ObstacleSet(NamedTuple):
@@ -202,3 +209,61 @@ def collision_constraints_with_jac(
     g, J = kernels.fused_collision_value_jac(hp.A, hp.dpos, hp.dneg, c[:, 0], dc[:, 0])
     g, J = mask_dead(hp, g[:, None], J[:, None])
     return g[:, 0], J[:, 0]
+
+
+def collision_constraint_values(
+    hp: BufferedHyperplanes,
+    link_centers: torch.Tensor,  # (B, S, T, L, 3) k-sliced link centers
+) -> torch.Tensor:
+    """Constraint values g(k) (B, S, L, O, T): feasible iff g <= 0, as a
+    plain differentiable hard max (`CollisionChecking.cu:250-284`).  Masked
+    obstacle slots give -1e3; autodiff through the max gives the
+    argmax-select gradient.  A NaN propagates, as in ``jnp.max``."""
+    vp, vn = kernels.pieces(hp.A, hp.dpos, hp.dneg, kernel_layout(link_centers))
+    return mask_dead(hp, -torch.amax(torch.maximum(vp, vn), dim=2))
+
+
+def smooth_collision_constraints_with_jac(
+    hp: BufferedHyperplanes,
+    link_centers: torch.Tensor,   # (B, S, T, L, 3)
+    dlink_centers: torch.Tensor,  # (B, S, n, T, L, 3)
+    tau: float,
+):
+    """SMOOTH variant of the obstacle constraint (the role of the
+    reference's optional Borrelli-dual formulation,
+    `uarmtd_planner.m:723-743,810-856`): the hard max over the 2P affine
+    separation pieces is replaced by the smooth LOWER bound
+    LSE(p/tau)*tau - tau*log(2P) <= max(p), so that
+
+        g_s = tau*log(2P) - tau*LSE(pieces/tau) >= g_hard,
+
+    i.e. the smooth constraint is MORE conservative, everywhere
+    differentiable, and within tau*log(2P) of the hard one.  The Jacobian
+    is the softmax-weighted combination of the signed normals.
+
+    Returns g (B, S, L, O, T) and J (B, S, n, L, O, T), the kernels' layout.
+    Starts are processed in chunks (see ``_SMOOTH_PIECES_BYTES``).
+    """
+    c, dc = kernel_layout(link_centers, dlink_centers)
+    B, P, L, O, T = hp.dpos.shape
+    S = c.shape[1]
+    per_start = B * 2 * P * L * O * T * hp.dpos.element_size()
+    step = max(1, min(S, _SMOOTH_PIECES_BYTES // per_start))
+    Af = hp.A.to(hp.dpos.dtype)
+    gap = tau * math.log(2 * P)
+    gs, Js = [], []
+    for s0 in range(0, S, step):
+        pieces = torch.cat(kernels.pieces(hp.A, hp.dpos, hp.dneg, c[:, s0:s0 + step]), dim=2)
+        m = torch.amax(pieces, dim=2)
+        w = torch.exp((pieces - m[:, :, None]) / tau)                       # (B, s, 2P, L, O, T)
+        del pieces
+        Z = torch.sum(w, dim=2)
+        gs.append(gap - (m + tau * torch.log(Z)))
+        # dg/dc = sum_p (softmax_neg - softmax_pos)_p A_p: the soft version
+        # of the hard path's signed one-hot select
+        w.div_(Z[:, :, None])                                               # softmax, in place
+        wsel = w[:, :, P:] - w[:, :, :P]                                    # (B, s, P, L, O, T)
+        del w
+        A_sel = torch.einsum("bsplot,bpclot->bsclot", wsel, Af)
+        Js.append(torch.einsum("bsclot,bsnclt->bsnlot", A_sel, dc[:, s0:s0 + step]))
+    return mask_dead(hp, torch.cat(gs, dim=1), torch.cat(Js, dim=1))

@@ -23,6 +23,7 @@ from armour_tpu_torch.device import resolve_device
 from armour_tpu_torch.ops.pz import PackedPZ
 from armour_tpu_torch.planner.armour import ProblemData
 from armour_tpu_torch.robots.spec import RobotSpec
+from armour_tpu_torch.sim.agent import TrajParams, TrueParams
 
 
 def spec_from_arrays(**fields) -> RobotSpec:
@@ -60,19 +61,39 @@ def packed_pz_from_numpy(c, G, r, basis, device=None, dtype=torch.float64) -> Pa
                     _t(r, device, dtype)[None], tuple(basis))
 
 
-def problem_from_numpy(links, u, hp, t_rad, q0, qd0, Tqd0, TTqdd0, k_range,
+def problem_from_numpy(links, u, hp, t_rad, q0, qd0, Tqd0, TTqdd0, k_range, grasp=None,
                        device=None, dtype=torch.float64) -> ProblemData:
-    """One world's built problem.  ``links``/``u``: (c, G, r, basis) or None
-    for ``u``; ``hp``: (A, dpos, dneg, obs_mask)."""
+    """One world's built problem.  ``links``/``u``/``grasp``: (c, G, r, basis),
+    or None for ``u`` and ``grasp``; ``hp``: (A, dpos, dneg, obs_mask);
+    ``k_range`` (nf,) is this world's and is stored per world, (1, nf)."""
     device = resolve_device(device)
+
+    def pz(p):
+        return None if p is None else packed_pz_from_numpy(*p, device=device, dtype=dtype)
+
     return ProblemData(
-        links=packed_pz_from_numpy(*links, device=device, dtype=dtype),
-        u=None if u is None else packed_pz_from_numpy(*u, device=device, dtype=dtype),
+        links=pz(links),
+        u=pz(u),
+        grasp=pz(grasp),
         hp=bank_from_numpy(*hp, device=device, dtype=dtype),
         t_rad=_t(t_rad, device, dtype)[None],
         q0=_t(q0, device, dtype)[None],
         qd0=_t(qd0, device, dtype)[None],
         Tqd0=_t(Tqd0, device, dtype)[None],
         TTqdd0=_t(TTqdd0, device, dtype)[None],
-        k_range=_t(k_range, device, dtype),
+        k_range=_t(k_range, device, dtype)[None],
     )
+
+
+def traj_params_from_numpy(q0, qd0, qdd0, k_actual, t_offset, device=None,
+                           dtype=torch.float64) -> TrajParams:
+    """The JAX package's ``TrajParams`` fields, of one world (nf,) or of
+    several (B, nf), as the port's."""
+    device = resolve_device(device)
+    return TrajParams(*(_t(x, device, dtype) for x in (q0, qd0, qdd0, k_actual, t_offset)))
+
+
+def true_params_from_numpy(mass_scale, inertia_scale, device=None, dtype=torch.float64) -> TrueParams:
+    """The JAX package's ``TrueParams`` fields as the port's."""
+    device = resolve_device(device)
+    return TrueParams(_t(mass_scale, device, dtype), _t(inertia_scale, device, dtype))

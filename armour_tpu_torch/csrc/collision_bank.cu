@@ -28,7 +28,10 @@
 // of the bank and the outputs coalesces along T.  Each thread keeps best[s]
 // and the winning signed normal for all S starts in registers, so the bank
 // slab is read from device memory ONCE for all starts (the point of the
-// _multi kernel, pallas_kernel.py:109-112).
+// _multi kernel, pallas_kernel.py:109-112).  S is bounded by a template
+// parameter: 1, 4 or 8 starts with the Jacobian (seven register arrays),
+// and up to 16 for the values-only kernel (four arrays, no normals), which
+// serves the planner's verification pool of 2S + 2 candidates in one pass.
 //
 // Bound: memory.  Per launch the kernel must read the bank once and write g
 // and J once; the arithmetic is ~10 operations per (slot, start, pair).  At
@@ -72,11 +75,13 @@ __global__ void __launch_bounds__(kThreads) bank_pass(
   const int64_t LOT = (int64_t)L * O * T;
   const int64_t slot = (int64_t)lo * T + t;  // offset inside one (L,O,T) slab
 
-  OT cx[MAXS], cy[MAXS], cz[MAXS], best[MAXS], a0[MAXS], a1[MAXS], a2[MAXS];
+  constexpr int NJ = JAC ? MAXS : 1;  // no normals are kept without the Jacobian
+  OT cx[MAXS], cy[MAXS], cz[MAXS], best[MAXS], a0[NJ], a1[NJ], a2[NJ];
+#pragma unroll
+  for (int s = 0; s < NJ; ++s) a0[s] = a1[s] = a2[s] = static_cast<OT>(0);
 #pragma unroll
   for (int s = 0; s < MAXS; ++s) {
     best[s] = static_cast<OT>(-1e30);
-    a0[s] = a1[s] = a2[s] = static_cast<OT>(0);
     cx[s] = cy[s] = cz[s] = static_cast<OT>(0);
     if (s < S) {
       const OT* cs = c + (b * S + s) * 3 * LT + (int64_t)l * T + t;
@@ -106,7 +111,7 @@ __global__ void __launch_bounds__(kThreads) bank_pass(
         // strict '>': the first maximum wins; (x == x) is false for NaN
         if (vp == vp && vn == vn && v > best[s]) {
           best[s] = v;
-          if (JAC) {
+          if constexpr (JAC) {
             const OT sg = pos ? static_cast<OT>(-1) : static_cast<OT>(1);
             a0[s] = sg * A0;
             a1[s] = sg * A1;
@@ -122,7 +127,7 @@ __global__ void __launch_bounds__(kThreads) bank_pass(
     if (s < S) {
       const int64_t bs = b * S + s;
       g[bs * LOT + slot] = -best[s];
-      if (JAC) {
+      if constexpr (JAC) {
         for (int i = 0; i < n; ++i) {
           const OT* d = dc + (bs * n + i) * 3 * LT + (int64_t)l * T + t;
           J[(bs * n + i) * LOT + slot] = a0[s] * d[0] + a1[s] * d[LT] + a2[s] * d[2 * LT];
@@ -156,6 +161,12 @@ int launch(const void* A, const void* dpos, const void* dneg, const void* c, con
   } else if (S <= 8) {
     bank_pass<AT, OT, 8, JAC><<<grid, block, 0, stream>>>(a, p, m, cc, dd, gg, jj, P, L, O, T, S, n);
   } else {
+    if constexpr (!JAC) {
+      if (S <= 16) {
+        bank_pass<AT, OT, 16, false><<<grid, block, 0, stream>>>(a, p, m, cc, dd, gg, jj, P, L, O, T, S, n);
+        return (int)cudaGetLastError();
+      }
+    }
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
@@ -188,7 +199,7 @@ int dispatch(const void* A, int a_dtype, const void* dpos, const void* dneg, int
 
 extern "C" {
 
-// Value + k-Jacobian for S starts in one bank pass.
+// Value + k-Jacobian for S <= 8 starts in one bank pass.
 int armour_collision_value_jac_multi(const void* A, int a_dtype, const void* dpos,
                                      const void* dneg, int o_dtype, const void* c,
                                      const void* dc, void* g, void* J, int B, int P, int L,
@@ -197,7 +208,7 @@ int armour_collision_value_jac_multi(const void* A, int a_dtype, const void* dpo
                         stream);
 }
 
-// Values only for S starts in one bank pass.
+// Values only for S <= 16 starts in one bank pass.
 int armour_collision_values_multi(const void* A, int a_dtype, const void* dpos,
                                   const void* dneg, int o_dtype, const void* c, void* g, int B,
                                   int P, int L, int O, int T, int S, void* stream) {

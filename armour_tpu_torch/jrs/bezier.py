@@ -70,6 +70,34 @@ def qd_des_fn(q0, Tqd0, TTqdd0, k_actual, s):
     return dB0 * b0 + dB1 * b1 + dB2 * b2 + (dB3 + dB4 + dB5) * b3
 
 
+def qdd_des_fn(q0, Tqd0, TTqdd0, k_actual, s):
+    """d2/ds2 of q_des (divide by DURATION^2 for rad/s^2)."""
+    b0, b1, b2, b3 = _betas(q0, Tqd0, TTqdd0, k_actual)
+    t5 = s - 1.0
+    ddB0 = -20.0 * t5**3
+    ddB1 = 40.0 * t5**3 + 60.0 * s * t5**2
+    ddB2 = -20.0 * t5**3 - 120.0 * s * t5**2 - 30.0 * s**2 * (2.0 * s - 2.0)
+    ddB3 = 20.0 * s**3 + 60.0 * s * t5**2 + 60.0 * s**2 * (2.0 * s - 2.0)
+    ddB4 = -40.0 * s**3 - 60.0 * s**2 * t5
+    ddB5 = 20.0 * s**3
+    return ddB0 * b0 + ddB1 * b1 + ddB2 * b2 + (ddB3 + ddB4 + ddB5) * b3
+
+
+def bezier_ref(q0, qd0, qdd0, k_actual, t, duration: float = 1.0):
+    """Reference (q, qd, qdd) at wall-clock time t in [0, duration].
+
+    Broadcasts over joint vectors; this is what the low-level controller
+    tracks (`uarmtd_planner.m:899-921` desired_trajectory).
+    """
+    s = t / duration
+    Tqd0 = qd0 * duration
+    TTqdd0 = qdd0 * duration * duration
+    q = q_des_fn(q0, Tqd0, TTqdd0, k_actual, s)
+    qd = qd_des_fn(q0, Tqd0, TTqdd0, k_actual, s) / duration
+    qdd = qdd_des_fn(q0, Tqd0, TTqdd0, k_actual, s) / (duration * duration)
+    return q, qd, qdd
+
+
 def _q_des_k_indep(q0, Tqd0, TTqdd0, s):
     """k-independent part of q_des (Trajectory.cu:812-814)."""
     return (

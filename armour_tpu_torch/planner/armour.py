@@ -1,15 +1,19 @@
 """The ARMOUR planner: reachable sets -> constraints -> batched NLP.
 
-Port of `armour_tpu/planner/armour.py` for the production mode
-(``traj_type="bernstein"``, hard-max collision, no grasp, no
-self-intersection).  The JAX package maps the build over worlds with
+Port of `armour_tpu/planner/armour.py`: the production mode
+(``traj_type="bernstein"``, hard-max collision) and the optional modes
+``traj_type="orig"`` (ARMTD comparison), smooth collision
+(``cfg.smooth_collision_tau > 0``) and grasp constraints; the
+self-intersection block is not ported.  The JAX package maps the build over worlds with
 ``lax.map`` and vmaps the solve; here the world axis B is a leading
 dimension of every tensor, and a plan is one eager pass over the batch:
 
     build_probs: Bezier JRS -> PZ-FK/RNEA -> whole-FRS obstacle culling
                  -> compaction -> bucketed hyperplane bank
     solve:       multi-start ALM (one collision-kernel launch per
-                 Gauss-Newton iteration) -> fused strict re-verification
+                 Gauss-Newton iteration) -> fused strict re-verification;
+                 in smooth mode the collision block is plain tensor code and
+                 the explicit verification pool makes the one kernel launch
 """
 
 from __future__ import annotations
@@ -26,10 +30,18 @@ from armour_tpu_torch.collision.zonotope import (
     ObstacleSet,
     buffer_obstacles,
     collision_constraints_with_jac_multi,
+    collision_values_multi,
+    smooth_collision_constraints_with_jac,
 )
-from armour_tpu_torch.config import PlannerConfig
+from armour_tpu_torch.config import GraspConfig, PlannerConfig
 from armour_tpu_torch.device import resolve_device
 from armour_tpu_torch.dynamics.pz_rnea import build_reachable_sets
+from armour_tpu_torch.jrs.armtd import (
+    armtd_position_extrema,
+    armtd_ref,
+    armtd_velocity_extrema,
+    make_armtd_jrs,
+)
 from armour_tpu_torch.jrs.bezier import (
     joint_position_extrema,
     joint_velocity_extrema,
@@ -60,13 +72,14 @@ class ProblemData(NamedTuple):
 
     links: PackedPZ              # centers (B, T, L, 3)
     u: PackedPZ | None           # nominal torques (B, T, nf), None without input constraints
+    grasp: PackedPZ | None       # contact constraints (B, T, 3), None without a grasp
     hp: BufferedHyperplanes | None
     t_rad: torch.Tensor          # (B, T, nf)
     q0: torch.Tensor             # (B, nf)
     qd0: torch.Tensor
     Tqd0: torch.Tensor
     TTqdd0: torch.Tensor
-    k_range: torch.Tensor        # (nf,)
+    k_range: torch.Tensor        # (nf,), or (B, nf) where it depends on the world ('orig')
 
 
 def obstacle_bucket(masks) -> int:
@@ -87,6 +100,10 @@ class ArmourPlanner:
     once; ``plan(q0, qd0, qdd0, q_des, obstacles)`` plans one.  Obstacles
     are padded to ``cfg.max_obstacles``.  ``device`` defaults to the card;
     without one it raises unless ``device="cpu"`` is passed.
+
+    ``traj_type="orig"`` is the ARMTD comparison mode: constant-acceleration
+    trajectories, no torque constraints, no tracking-error padding.
+    ``grasp`` adds the contact constraints of a carried object.
     """
 
     spec: RobotSpec
@@ -94,17 +111,26 @@ class ArmourPlanner:
     dtype: torch.dtype = torch.float64
     device: object = None
     traj_type: str = "bernstein"
+    grasp: GraspConfig | None = None
+    self_intersection: object = False
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        if self.traj_type != "bernstein":
-            raise NotImplementedError("only traj_type='bernstein' is ported")
-        if self.cfg.smooth_collision_tau != 0.0:
-            raise NotImplementedError("smooth-collision mode is not ported")
+        if self.traj_type not in ("bernstein", "orig"):
+            raise ValueError(f"unknown traj_type {self.traj_type!r}")
+        if self.self_intersection:
+            raise NotImplementedError("self_intersection is not ported")
+        self._armtd = self.traj_type == "orig"
+        if self._armtd and self.grasp is not None:
+            raise ValueError("grasp constraints need the Bezier reachable sets; "
+                             "traj_type='orig' has no velocity/acceleration sets")
+        # ARMTD mode has no torque constraints (`armour.py:274-276`)
+        self._cfg = (dataclasses.replace(self.cfg, input_constraints=False) if self._armtd
+                     else self.cfg)
         spec = self.spec
         # the relaxed state acceptance threshold is only sound while it
         # stays well inside the tracking-error padding the limits carry
-        if not self.cfg.state_violation_threshold < 0.1 * min(spec.qe, spec.qde):
+        if not self._armtd and not self.cfg.state_violation_threshold < 0.1 * min(spec.qe, spec.qde):
             raise ValueError(
                 f"state_violation_threshold={self.cfg.state_violation_threshold} is "
                 f"not << tracking-error padding qe={spec.qe}, qde={spec.qde}")
@@ -120,10 +146,15 @@ class ArmourPlanner:
         hp=None, link_indep_gens (B,T,L,3,6), aabb_c, aabb_r (B,T,L,3)):
         the AABBs are the interval hulls of the link-center sets over ALL k
         plus the link-shape radii, for the whole-FRS culling."""
-        cfg = self.cfg
+        cfg = self._cfg
         q0, qd0, qdd0 = self._t(q0), self._t(qd0), self._t(qdd0)
-        jrs = make_bezier_jrs(self.spec, cfg, q0, qd0, qdd0)
-        rs = build_reachable_sets(self.spec, cfg, jrs)
+        if self._armtd:
+            jrs = make_armtd_jrs(self.spec, cfg, q0, qd0)
+            Tqd0, TTqdd0 = torch.zeros_like(q0), torch.zeros_like(q0)
+        else:
+            jrs = make_bezier_jrs(self.spec, cfg, q0, qd0, qdd0)
+            Tqd0, TTqdd0 = jrs.Tqd0, jrs.TTqdd0
+        rs = build_reachable_sets(self.spec, cfg, jrs, grasp=self.grasp)
         links = pack_pzs(rs.link_pz, axis=2)
         aabb_c = links.c
         aabb_r = links.r + rs.link_indep_gens.abs().sum(-1)
@@ -132,9 +163,10 @@ class ArmourPlanner:
         prob = ProblemData(
             links=links,
             u=pack_pzs(rs.u_nom, axis=-1) if cfg.input_constraints else None,
+            grasp=pack_pzs(rs.grasp_cons, axis=-1) if rs.grasp_cons else None,
             hp=None,
             t_rad=rs.torque_radius,
-            q0=q0, qd0=qd0, Tqd0=jrs.Tqd0, TTqdd0=jrs.TTqdd0,
+            q0=q0, qd0=qd0, Tqd0=Tqd0, TTqdd0=TTqdd0,
             k_range=jrs.k_range,
         )
         return prob, rs.link_indep_gens, aabb_c, aabb_r
@@ -204,39 +236,55 @@ class ArmourPlanner:
     def solve(self, prob: ProblemData, q_des, k_rand=None, k_warm=None,
               generator: torch.Generator | None = None) -> PlanResult:
         """NLP phase: constraint closures over a built problem -> multi-start
-        ALM -> fused strict re-verification (`armour.py:347-551`)."""
-        spec, cfg, dtype, dev = self.spec, self.cfg, self.dtype, self.device
+        ALM -> strict re-verification (`armour.py:347-607`): fused with the
+        solver's carried values in hard-max mode, an explicit pass over the
+        candidate pool in smooth mode."""
+        spec, cfg, dtype, dev = self.spec, self._cfg, self.dtype, self.device
+        armtd = self._armtd
         nf = spec.n_factors
         B = prob.q0.shape[0]
         q_des = self._t(q_des)
         t_lim = self._t(spec.torque_limits)
-        pos_lb = self._t(spec.pos_limits_lb + spec.qe)
-        pos_ub = self._t(spec.pos_limits_ub - spec.qe)
-        vel_lb = self._t(-spec.speed_limits + spec.qde)
-        vel_ub = self._t(spec.speed_limits - spec.qde)
+        # ARMTD mode carries no tracking-error sets (`armour.py:362-363`)
+        qe = 0.0 if armtd else spec.qe
+        qde = 0.0 if armtd else spec.qde
+        pos_lb = self._t(spec.pos_limits_lb + qe)
+        pos_ub = self._t(spec.pos_limits_ub - qe)
+        vel_lb = self._t(-spec.speed_limits + qde)
+        vel_ub = self._t(spec.speed_limits - qde)
         cont = torch.as_tensor(spec.continuous_joints, device=dev)
         s_plan = cfg.t_plan / cfg.duration
         # per-world data broadcast against K (..., B, S, n)
-        q0b, Tqd0b, TTqdd0b = prob.q0[:, None], prob.Tqd0[:, None], prob.TTqdd0[:, None]
+        q0b, qd0b = prob.q0[:, None], prob.qd0[:, None]
+        Tqd0b, TTqdd0b = prob.Tqd0[:, None], prob.TTqdd0[:, None]
+        k_rng = prob.k_range if prob.k_range.ndim == 1 else prob.k_range[:, None]
         q_desb = q_des[:, None]
         t_rad = prob.t_rad[:, None]                              # (B, 1, T, nf)
 
         def f_fn(K):
-            q_plan = q_des_fn(q0b, Tqd0b, TTqdd0b, prob.k_range * K, s_plan)
+            if armtd:
+                q_plan, _, _ = armtd_ref(q0b, qd0b, k_rng * K, cfg.t_plan, cfg.t_plan, cfg.duration)
+            else:
+                q_plan = q_des_fn(q0b, Tqd0b, TTqdd0b, k_rng * K, s_plan)
             d = q_plan - q_desb
             d = torch.where(cont, wrap_to_pi(d), d)
             return cfg.cost_scale * torch.sum(d * d, dim=-1)
 
         def pv_fn(K):
             """Position/velocity-limit block (tiny closed forms)."""
-            mn, mx = joint_position_extrema(q0b, Tqd0b, TTqdd0b, prob.k_range, K)
-            vn, vx = joint_velocity_extrema(q0b, Tqd0b, TTqdd0b, prob.k_range, K, cfg.duration)
+            if armtd:
+                mn, mx = armtd_position_extrema(q0b, qd0b, k_rng, K, cfg.t_plan, cfg.duration)
+                vn, vx = armtd_velocity_extrema(qd0b, k_rng, K, cfg.t_plan)
+            else:
+                mn, mx = joint_position_extrema(q0b, Tqd0b, TTqdd0b, k_rng, K)
+                vn, vx = joint_velocity_extrema(q0b, Tqd0b, TTqdd0b, k_rng, K, cfg.duration)
             return torch.cat([pos_lb - mn, mn - pos_ub, pos_lb - mx, mx - pos_ub,
                               vel_lb - vn, vn - vel_ub, vel_lb - vx, vx - vel_ub], dim=-1)
 
         def cj_multi(K):
             """K (B, S, n) -> (c (B, S, m), Jt (B, S, n, m)) with ONE pass
-            over the collision bank for all worlds and starts."""
+            over the collision bank for all worlds and starts (smooth mode:
+            the log-sum-exp bound in plain tensor code, no kernel)."""
             S = K.shape[1]
             vals, jacs = [], []
             if prob.u is not None:
@@ -246,8 +294,16 @@ class ArmourPlanner:
                 jacs.append(Ju)
                 vals.append(((-t_lim + t_rad) - u_c).reshape(B, S, -1))
                 jacs.append(-Ju)
+            if prob.grasp is not None:
+                gc, gr, dgc = prob.grasp.slice_with_jac_multi(K)
+                vals.append((gc + gr[:, None]).reshape(B, S, -1))
+                jacs.append(dgc.reshape(B, S, nf, -1))
             centers, _, dcenters = prob.links.slice_with_jac_multi(K)
-            g, Jg = collision_constraints_with_jac_multi(prob.hp, centers, dcenters)
+            if cfg.smooth_collision_tau > 0.0:
+                g, Jg = smooth_collision_constraints_with_jac(prob.hp, centers, dcenters,
+                                                              cfg.smooth_collision_tau)
+            else:
+                g, Jg = collision_constraints_with_jac_multi(prob.hp, centers, dcenters)
             vals.append(g.reshape(B, S, -1))
             jacs.append(Jg.reshape(B, S, nf, -1))
             vals.append(pv_fn(K))
@@ -265,28 +321,51 @@ class ArmourPlanner:
         sol = solve_box_alm_multi(f_fn, cj_multi, K0, outer_iters=cfg.nlp_outer_iters,
                                   inner_iters=cfg.nlp_inner_iters)
 
-        # strict re-verification, FUSED (`armour.py:485-551`): the solver's
-        # carried constraint values are exact at the final iterates (sol.c)
-        # and at the starts (sol.c0), and the strictly-feasible incumbents
-        # satisfy max c <= 0 < every threshold by construction, so the pool
-        # (final iterates, incumbents, k = 0 and the warm start) is judged
-        # with no extra pass over the bank
-        m = sol.c0.shape[-1]
-        parts = []
-        if prob.u is not None:
-            m_t = int(np.prod(prob.u.c.shape[1:]))
-            parts += [(m_t, cfg.torque_violation_threshold)] * 2
-        m_tail = 8 * nf
-        parts.append((m - sum(p[0] for p in parts) - m_tail, cfg.collision_violation_threshold))
-        parts.append((m_tail, cfg.state_violation_threshold))
-        thr = torch.cat([torch.full((sz,), t, dtype=dtype, device=dev) for sz, t in parts])
-
-        feas0 = torch.all(sol.c0 <= thr, dim=-1)
-        viol0 = torch.amax(sol.c0, dim=-1)
         pool = torch.cat([sol.k, sol.k_feas, K0[:, :2]], dim=1)   # (B, 2S+2, n)
-        feas = torch.cat([torch.all(sol.c <= thr, dim=-1), sol.found_feas | feas0, feas0[:, :2]], dim=1)
-        viols = torch.cat([torch.amax(sol.c, dim=-1),
-                           torch.where(sol.found_feas, sol.v_feas, viol0), viol0[:, :2]], dim=1)
+        if cfg.smooth_collision_tau == 0.0:
+            # strict re-verification, FUSED (`armour.py:485-551`): the solver's
+            # carried constraint values are exact at the final iterates (sol.c)
+            # and at the starts (sol.c0), and the strictly-feasible incumbents
+            # satisfy max c <= 0 < every threshold by construction, so the pool
+            # (final iterates, incumbents, k = 0 and the warm start) is judged
+            # with no extra pass over the bank
+            m = sol.c0.shape[-1]
+            parts = []
+            if prob.u is not None:
+                m_t = int(np.prod(prob.u.c.shape[1:]))
+                parts += [(m_t, cfg.torque_violation_threshold)] * 2
+            if prob.grasp is not None:
+                parts.append((int(np.prod(prob.grasp.c.shape[1:])), 1e-6))
+            m_tail = 8 * nf
+            parts.append((m - sum(p[0] for p in parts) - m_tail, cfg.collision_violation_threshold))
+            parts.append((m_tail, cfg.state_violation_threshold))
+            thr = torch.cat([torch.full((sz,), t, dtype=dtype, device=dev) for sz, t in parts])
+
+            feas0 = torch.all(sol.c0 <= thr, dim=-1)
+            viol0 = torch.amax(sol.c0, dim=-1)
+            feas = torch.cat([torch.all(sol.c <= thr, dim=-1), sol.found_feas | feas0, feas0[:, :2]], dim=1)
+            viols = torch.cat([torch.amax(sol.c, dim=-1),
+                               torch.where(sol.found_feas, sol.v_feas, viol0), viol0[:, :2]], dim=1)
+        else:
+            # smooth mode keeps the explicit pass (`armour.py:553-607`): the
+            # solver's values are the smooth conservative bound, while the
+            # verification contract is against the hard max.  One launch of
+            # the values-only kernel covers the whole pool.
+            Np = pool.shape[1]
+            blocks = []                                       # (values (B, Np, ...), threshold)
+            if prob.u is not None:
+                u_c, _, _ = prob.u.slice_with_jac_multi(pool)          # (B, Np, T, nf)
+                blocks.append((torch.maximum(u_c - (t_lim - t_rad), (-t_lim + t_rad) - u_c),
+                               cfg.torque_violation_threshold))
+            if prob.grasp is not None:
+                gc, gr, _ = prob.grasp.slice_with_jac_multi(pool)
+                blocks.append((gc + gr[:, None], 1e-6))
+            centers, _, _ = prob.links.slice_with_jac_multi(pool)
+            blocks.append((collision_values_multi(prob.hp, centers), cfg.collision_violation_threshold))
+            blocks.append((pv_fn(pool), cfg.state_violation_threshold))
+            worst = [(v.reshape(B, Np, -1).amax(dim=-1), thr) for v, thr in blocks]
+            feas = torch.stack([v <= thr for v, thr in worst]).all(dim=0)
+            viols = torch.stack([v for v, _ in worst]).amax(dim=0)
         costs = torch.where(feas, f_fn(pool), torch.inf)
         best = torch.argmin(costs, dim=1, keepdim=True)           # (B, 1)
         feasible = torch.gather(feas, 1, best)[:, 0]

@@ -1,8 +1,9 @@
-"""Batched box-constrained NLP solver: augmented Lagrangian + projected
-Gauss-Newton, all worlds and starts in lockstep.
+"""Batched box-constrained NLP solvers: augmented Lagrangian + projected
+Gauss-Newton, all worlds (and starts) in lockstep.
 
-Port of `armour_tpu/planner/nlp.py:solve_box_alm_multi` (see its docstring
-for the method).  The fixed-length ``lax.scan`` loops become Python loops;
+Port of `armour_tpu/planner/nlp.py` (see its docstrings for the method):
+``solve_box_alm_multi``, the planner's start-batched solver, and
+``solve_box_alm``, the single-start solver.  The fixed-length ``lax.scan`` loops become Python loops;
 ``jax.grad``/``jax.hessian``/``jax.jacfwd`` become ``torch.func``.  Every
 tensor carries (B worlds, S starts) in front; the constraint Jacobian is
 kept TRANSPOSED, (B, S, n, m), which is the layout the collision kernel
@@ -22,14 +23,17 @@ from armour_tpu_torch.ops.linalg import spd_solve_small
 
 
 class ALMResult(NamedTuple):
+    """Shapes for ``solve_box_alm_multi``; ``solve_box_alm`` has no start
+    axis S and leaves the last three fields None."""
+
     k: torch.Tensor              # (B, S, n) final iterates
     max_violation: torch.Tensor  # (B, S)
     cost: torch.Tensor           # (B, S)
     k_feas: torch.Tensor         # (B, S, n) lowest-cost STRICTLY feasible iterate seen
     found_feas: torch.Tensor     # (B, S) bool: k_feas is valid (else == the start)
-    c: torch.Tensor              # (B, S, m) exact constraint values at k
-    c0: torch.Tensor             # (B, S, m) exact constraint values at the starts
-    v_feas: torch.Tensor         # (B, S) max constraint value at k_feas (<= 0)
+    c: torch.Tensor = None       # (B, S, m) exact constraint values at k
+    c0: torch.Tensor = None      # (B, S, m) exact constraint values at the starts
+    v_feas: torch.Tensor = None  # (B, S) max constraint value at k_feas (<= 0)
 
 
 def jacobian_t(fn: Callable, K: torch.Tensor) -> torch.Tensor:
@@ -49,6 +53,116 @@ def cost_derivatives(f_fn: Callable, K: torch.Tensor):
     reverse, as ``jax.hessian``)."""
     g_fn = grad(lambda k: f_fn(k).sum())
     return g_fn(K), jacobian_t(g_fn, K)
+
+
+def solve_box_alm(
+    f_fn: Callable,
+    c_fn: Callable,
+    k0: torch.Tensor,
+    outer_iters: int = 14,
+    inner_iters: int = 14,
+    mu0: float = 10.0,
+    mu_growth: float = 4.0,
+    mu_max: float = 1e6,
+    newton_reg: float = 1e-8,
+    ls_steps: int = 4,
+    cj_fn: Callable | None = None,
+) -> ALMResult:
+    """Single-start ALM over the leading dims of ``k0`` (..., n), usually
+    the worlds (B, n); the JAX package's version takes one problem and is
+    vmapped by its caller.
+
+    ``f_fn``: k (..., n) -> (...) and ``c_fn``: k (..., n) -> (..., m),
+    both independent across the leading dims.
+
+    ``cj_fn``: optional k -> (c (..., m), Jt (..., n, m)) returning values
+    AND the TRANSPOSED Jacobian in one fused pass.  When given, each
+    Gauss-Newton iteration makes exactly ONE pass over the constraints and
+    the line search runs on the linearized constraint model.  Without it,
+    forward-mode tangents and an exact-merit line search are used.
+    """
+    n = k0.shape[-1]
+    dtype, dev = k0.dtype, k0.device
+    lead = k0.shape[:-1]
+    eye_n = torch.eye(n, dtype=dtype, device=dev)
+    shrink = 0.5 ** torch.arange(ls_steps, dtype=dtype, device=dev)
+
+    def penalty(c, lam, mu):  # (..., m), (..., m), (...) -> (...)
+        a = torch.clamp(lam + mu[..., None] * c, min=0.0)
+        return torch.sum(a * a - lam * lam, dim=-1) / (2.0 * mu)
+
+    def newton_dir(k, c, Jt, lam, mu):
+        fgrad, fhess = cost_derivatives(f_fn, k)
+        a = torch.clamp(lam + mu[..., None] * c, min=0.0)
+        grad_al = fgrad + torch.einsum("...nm,...m->...n", Jt, a)
+        active = (a > 0.0).to(dtype)
+        H = mu[..., None, None] * torch.matmul(Jt * active[..., None, :], Jt.transpose(-1, -2))
+        H = H + fhess + newton_reg * eye_n
+        return -spd_solve_small(H + 1e-10 * eye_n, grad_al)
+
+    def pick(values, phis):
+        """values (A, ..., x), phis (A, ...) -> the value with the least phi."""
+        best = torch.argmin(phis, dim=0)
+        idx = best[None, ..., None].expand((1,) + values.shape[1:])
+        return torch.gather(values, 0, idx)[0], torch.gather(phis, 0, best[None])[0]
+
+    # cj route: ONE constraint pass per inner iteration, made at the
+    # line-search CANDIDATE; (c, Jt) at the current iterate are carried and
+    # acceptance is decided on the EXACT merit
+    def inner_step_cj(k, c, Jt, lam, mu, scale):
+        dk = newton_dir(k, c, Jt, lam, mu)
+        phi0 = f_fn(k) + penalty(c, lam, mu)
+        alphas = scale[None] * shrink.reshape((ls_steps,) + (1,) * len(lead))
+        k_new = torch.clamp(k[None] + alphas[..., None] * dk[None], -1.0, 1.0)   # (A, ..., n)
+        c_lin = c[None] + torch.einsum("...nm,a...n->a...m", Jt, k_new - k[None])
+        phis = f_fn(k_new) + penalty(c_lin, lam[None], mu[None])
+        k_cand, _ = pick(k_new, phis)
+        c_cand, J_cand = cj_fn(k_cand)
+        accept = (f_fn(k_cand) + penalty(c_cand, lam, mu)) < phi0
+        scale = torch.where(accept, 1.0, torch.clamp(scale * 0.5 ** ls_steps, min=1e-6))
+        return (torch.where(accept[..., None], k_cand, k),
+                torch.where(accept[..., None], c_cand, c),
+                torch.where(accept[..., None, None], J_cand, Jt),
+                scale)
+
+    def inner_step(k, lam, mu):
+        c, Jt = c_fn(k), jacobian_t(c_fn, k)
+        dk = newton_dir(k, c, Jt, lam, mu)
+        phi0 = f_fn(k) + penalty(c, lam, mu)
+        # backtracking line search on the EXACT merit with box projection,
+        # one step length at a time (the constraint pipeline's peak memory)
+        k_new = torch.stack([torch.clamp(k + a * dk, -1.0, 1.0) for a in shrink])
+        phis = torch.stack([f_fn(kn) + penalty(c_fn(kn), lam, mu) for kn in k_new])
+        k_best, phi_best = pick(k_new, phis)
+        return torch.where((phi_best < phi0)[..., None], k_best, k)
+
+    k = k0
+    m = c_fn(k0).shape[-1]
+    lam = torch.zeros(lead + (m,), dtype=dtype, device=dev)
+    mu = torch.full(lead, mu0, dtype=dtype, device=dev)
+    viol = torch.full(lead, torch.inf, dtype=dtype, device=dev)
+    k_feas = k0
+    f_feas = torch.full(lead, torch.inf, dtype=dtype, device=dev)
+    found = torch.zeros(lead, dtype=torch.bool, device=dev)
+    for _ in range(outer_iters):
+        if cj_fn is not None:
+            c, Jt = cj_fn(k)
+            scale = torch.ones(lead, dtype=dtype, device=dev)
+            for _ in range(inner_iters):
+                k, c, Jt, scale = inner_step_cj(k, c, Jt, lam, mu, scale)
+        else:
+            for _ in range(inner_iters):
+                k = inner_step(k, lam, mu)
+            c = c_fn(k)
+        prev_viol, viol = viol, torch.amax(torch.clamp(c, min=0.0), dim=-1)
+        f_now = f_fn(k)
+        upd = (torch.amax(c, dim=-1) <= 0.0) & (f_now < f_feas)
+        k_feas = torch.where(upd[..., None], k, k_feas)
+        f_feas = torch.where(upd, f_now, f_feas)
+        found = found | upd
+        lam = torch.clamp(lam + mu[..., None] * c, min=0.0)
+        mu = torch.where(viol > 0.25 * prev_viol, torch.clamp(mu * mu_growth, max=mu_max), mu)
+    return ALMResult(k=k, max_violation=viol, cost=f_fn(k), k_feas=k_feas, found_feas=found)
 
 
 def solve_box_alm_multi(

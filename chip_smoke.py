@@ -9,12 +9,19 @@ Phases (each prints one JSON line; any failure exits non-zero):
   3. kernels  each of the three collision kernels against its plain PyTorch
               version on a bank built by the planner's own main path
               (seed 0, B=128, T=128, bucket 8, bf16 A; then an f64 bank),
-              with CUDA-event times, bytes moved and the memory/compute bound
+              with CUDA-event times, bytes moved and the memory/compute bound;
+              the values-only kernel also at the 10 candidates of the
+              smooth-mode verification pool
   4. main     ArmourPlanner.plan_batch at B=128, T=128, 8 obstacles: time,
               feasibility and kernel launches per plan; then the 40-obstacle
               point and the batch-1 latency; then the collision check of the
               returned plans (values_multi and single-start value_jac)
-  5. parity   plan() on the card against plan() on the CPU, 4 worlds, T=32, f64
+  5. modes    one plan_batch at the same width for traj_type="orig", for
+              smooth collision (tau = 1e-3) and with grasp constraints
+  6. track    one closed-loop rollout of the 128 plans of phase 4: robust
+              controller, RK4 plant at 5e-4 s, 1,000 steps, all worlds at once
+  7. parity   plan() on the card against plan() on the CPU (4 worlds, then
+              one world per mode) and a 20-step rollout, T=32, f64
 The last lines are the kernel table as JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}.  Longer output goes to chiprun_out/.
 """
@@ -86,6 +93,23 @@ def wall(torch, fn, reps):
     return statistics.median(times), out
 
 
+def count_tensor_calls(fn) -> int:
+    """Tensor-library calls (kernel launches AND views) that fn() makes from
+    Python: what the host pays for, whatever reaches the device."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Counter(TorchDispatchMode):
+        calls = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Counter.calls += 1
+            return func(*args, **(kwargs or {}))
+
+    with Counter():
+        fn()
+    return Counter.calls
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -109,10 +133,12 @@ def main() -> int:
         kernel_layout,
         mask_dead,
     )
-    from armour_tpu_torch.config import PlannerConfig
+    from armour_tpu_torch.config import GraspConfig, PlannerConfig, SimConfig
     from armour_tpu_torch.planner.armour import ArmourPlanner
-    from armour_tpu_torch.problems import problem_set
+    from armour_tpu_torch.problems import Q_HOME, problem_set
     from armour_tpu_torch.robots.kinova import kinova_gen3_spec
+    from armour_tpu_torch.sim.agent import TrajParams, TrueParams, rollout
+    from armour_tpu_torch.sim.world import arm_collision_check
 
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -146,6 +172,9 @@ def main() -> int:
     # ---- 3. kernels against their plain versions -------------------------
     probs8 = problem_set(cfg, B, n_obs=8, seed=0, device=dev)
     K_np = np.random.default_rng(1).uniform(-0.9, 0.9, (B, S, n))
+    S_pool = 2 * S + 2   # the smooth-mode verification pool: ONE values-only launch
+    K_pool_np = np.random.default_rng(3).uniform(-0.9, 0.9, (B, S_pool, n))
+    pool_name = f"fused_collision_values_multi[S={S_pool}]"
     rows = {}
     for dtype, tol in ((torch.float32, 2e-6), (torch.float64, 1e-12)):
         planner = ArmourPlanner(spec, cfg, dtype=dtype, device=dev)
@@ -155,15 +184,19 @@ def main() -> int:
         centers, _, dcenters = prob.links.slice_with_jac_multi(K)
         c, dc = kernel_layout(centers, dcenters)
         unique = kernels.tie_mask(hp.A, hp.dpos, hp.dneg, c, tol=1e-5)  # (B, S, L, O, T)
+        c_pool = kernel_layout(prob.links.slice_with_jac_multi(
+            torch.as_tensor(K_pool_np, dtype=dtype, device=dev))[0])
         cases = (
-            (kernels.fused_collision_value_jac_multi, (hp.A, hp.dpos, hp.dneg, c, dc), True, unique),
-            (kernels.fused_collision_values_multi, (hp.A, hp.dpos, hp.dneg, c), False, unique),
+            (kernels.fused_collision_value_jac_multi, (hp.A, hp.dpos, hp.dneg, c, dc), True, unique, None),
+            (kernels.fused_collision_values_multi, (hp.A, hp.dpos, hp.dneg, c), False, unique, None),
             (kernels.fused_collision_value_jac,
              (hp.A, hp.dpos, hp.dneg, c[:, 0].contiguous(), dc[:, 0].contiguous()), True,
-             unique[:, :1]),
+             unique[:, :1], None),
+            (kernels.fused_collision_values_multi, (hp.A, hp.dpos, hp.dneg, c_pool), False, unique,
+             pool_name),
         )
-        for kern, args, jac, uniq in cases:
-            name = kern.__name__
+        for kern, args, jac, uniq, row_name in cases:
+            name = row_name or kern.__name__
             plain = kernels.PLAIN[kern]
             got, ref = kern(*args), plain(*args)
             torch.cuda.synchronize()
@@ -193,13 +226,13 @@ def main() -> int:
                 continue
             # times at the main path's shapes (f32 offsets, bf16 A)
             outs = got if jac else (got,)
-            Sx = 1 if single else S
+            Sx = 1 if single else args[3].shape[1]
             Bk, P, _, L, O, T = hp.A.shape
             ops = Bk * Sx * L * O * T * (P * _OPS_PER_PIECE + (n * _OPS_PER_JAC if jac else 0))
             moved = nbytes(*args, *outs)
             b_mem, b_ops = moved / peak_bw * 1e3, ops / peak_f32 * 1e3
             row.update({
-                "name": name, "route": "cuda",
+                "name": name, "wrapper": kern.__name__, "route": "cuda",
                 "source": "armour_tpu_torch/csrc/collision_bank.cu",
                 "ms": time_ms(torch, lambda: kern(*args)),
                 "plain_ms": time_ms(torch, lambda: plain(*args), reps=20, warmup=2),
@@ -210,10 +243,11 @@ def main() -> int:
             })
             emit({"phase": "kernel_time", **{k: row[k] for k in
                   ("name", "ms", "plain_ms", "bytes", "bound_ms", "bound_by", "shapes")}})
-        del planner, prob, hp, c, dc, centers, dcenters, unique
+        del planner, prob, hp, c, dc, c_pool, centers, dcenters, unique, got, ref
         torch.cuda.empty_cache()
     rows["fused_collision_value_jac_multi"]["replaces"] = "armour_tpu/collision/pallas_kernel.py:166"
     rows["fused_collision_values_multi"]["replaces"] = "armour_tpu/collision/pallas_kernel.py:225"
+    rows[pool_name]["replaces"] = "armour_tpu/collision/pallas_kernel.py:225"
     rows["fused_collision_value_jac"]["replaces"] = "armour_tpu/collision/pallas_kernel.py:85"
 
     # ---- 4. main path ----------------------------------------------------
@@ -251,16 +285,18 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     res8, prob8, counts8 = run_point(probs8, "8obs")
     for r in rows.values():
-        r["launches"] = counts8[r["name"]]
+        r["launches"] = counts8[r["wrapper"]]
+    # one timed repetition here and five latency runs below: the modes and
+    # the closed loop further down take the time these repetitions gave up
     probs40 = problem_set(cfg, B, n_obs=40, seed=7, device=dev)
-    run_point(probs40, "40obs")
+    run_point(probs40, "40obs", reps=1)
 
     q0_0 = probs8.q0[0]
     obs1 = ObstacleSet(probs8.zonos[0], probs8.masks[0])
     lat, _ = wall(torch, lambda: planner.plan(q0_0, np.zeros(7), np.zeros(7), q0_0 + 0.05, obs1), 1)
     lats = [wall(torch, lambda i=i: planner.plan(probs8.q0[i], np.zeros(7), np.zeros(7),
                                                  probs8.q0[i] + 0.05, obs1), 1)[0]
-            for i in range(10)]
+            for i in range(5)]
     emit({"phase": "latency_batch1", "median_ms": statistics.median(lats) * 1e3,
           "runs_ms": [x * 1e3 for x in lats]})
 
@@ -281,11 +317,140 @@ def main() -> int:
     for name in ("fused_collision_values_multi", "fused_collision_value_jac"):
         assert check_counts[name] == 1, check_counts
         rows[name]["launches"] = check_counts[name]
+    del centers, dcenters, g_multi, g_one
     emit({"phase": "check_path", "launches": check_counts,
           "max_collision_value_feasible": float(worst[feas].max()) if bool(feas.any()) else None,
           "feasible": int(feas.sum())})
 
-    # ---- 5. card against CPU on the same path ----------------------------
+
+    # ---- 5. the other planner modes at full width --------------------------
+    zero_counts = {k.__name__: 0 for k in kernels.KERNELS}
+
+    def hard_max_check(pl, prob, res, label):
+        """Every plan reported feasible passes the hard-max collision check
+        through the values-only kernel; k is finite and in the box where
+        feasible, NaN where not."""
+        feas = res.feasible
+        k = res.k.cpu().numpy()
+        f_np = feas.cpu().numpy()
+        assert np.all(np.isfinite(k[f_np])) and np.all(np.isnan(k[~f_np])), label
+        assert np.all(np.abs(k[f_np]) <= 1.0), label
+        k_chk = torch.where(feas[:, None], res.k, 0.0)
+        centers = prob.links.slice_with_jac_multi(k_chk[:, None])[0]
+        worst = collision_values_multi(prob.hp, centers).flatten(1).amax(1)
+        assert bool((worst[feas] <= pl.cfg.collision_violation_threshold).all()), \
+            f"{label}: a plan reported feasible violates the hard-max collision constraint"
+        return float(worst[feas].max()) if bool(feas.any()) else None
+
+    def run_mode(label, pl, args, expect):
+        pl.plan_batch(*args)                                    # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        sec, res = wall(torch, lambda: pl.plan_batch(*args), 1)
+        counts = kernels.launch_counts()
+        assert counts == dict(zero_counts, **expect), f"{label}: launches {counts}, expected {expect}"
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        prob = pl.build_probs(*args[:3], *args[4:])
+        worst = hard_max_check(pl, prob, res, label)
+        out = {"phase": "modes", "mode": label, "batch": B, "T": pl.cfg.num_time_steps,
+               "seconds_per_batch": sec, "plans_per_s": B / sec,
+               "feasible_fraction": float(res.feasible.float().mean()),
+               "bucket": int(prob.hp.dpos.shape[-2]), "launches_per_plan_batch": counts,
+               "max_collision_value_feasible": worst, "peak_mem_gb": peak}
+        return res, prob, out
+
+    args8 = (probs8.q0, probs8.qd0, probs8.qdd0, probs8.q_des, probs8.zonos, probs8.masks)
+    _, _, out = run_mode("orig", ArmourPlanner(spec, cfg, dtype=torch.float32, device=dev,
+                                               traj_type="orig"), args8, {main_name: passes})
+    emit(out)
+
+    tau = 1e-3
+    smooth_pl = ArmourPlanner(spec, dataclasses.replace(cfg, smooth_collision_tau=tau),
+                              dtype=torch.float32, device=dev)
+    _, _, out = run_mode("smooth", smooth_pl, args8, {"fused_collision_values_multi": 1})
+    rows[pool_name]["launches"] = out["launches_per_plan_batch"]["fused_collision_values_multi"]
+    emit(dict(out, tau=tau, pool=S_pool))
+    del smooth_pl
+
+    # grasp: every world starts near the tray-up pose (end-effector z-axis
+    # up) at rest, with one far obstacle; the random poses of the problem
+    # set hold the tray sideways, where the contact constraints cannot hold
+    grasp = GraspConfig(object_mass=0.2, u_s=0.6, surf_rad=0.03)
+    grasp_pl = ArmourPlanner(spec, cfg, dtype=torch.float32, device=dev, grasp=grasp)
+    q_tray = np.array([0.0, -0.5, 0.0, -2.0, 0.0, -0.6, 0.0])
+    q0_g = q_tray + np.random.default_rng(0).uniform(-0.05, 0.05, (B, n))
+    far = ObstacleSet.from_boxes([[5.0, 5.0, 5.0]], [[0.1, 0.1, 0.1]], cfg.max_obstacles)
+    zonos_g, masks_g = np.tile(far.zonos, (B, 1, 1, 1)), np.tile(far.mask, (B, 1))
+    zeros = np.zeros((B, n))
+    args_g = (q0_g, zeros, zeros, q0_g + 0.3 * cfg.k_range, zonos_g, masks_g)
+    res_g, prob_g, out = run_mode("grasp", grasp_pl, args_g, {main_name: passes})
+    feas_g = res_g.feasible
+    assert bool(feas_g.any()), "grasp: no world is feasible at the tray-up pose"
+    # sliced at the solver's own shape (B, S, n), so that a value the solver
+    # accepted at the threshold is not re-rounded by another product shape
+    k_rep = torch.where(feas_g[:, None], res_g.k, 0.0)[:, None].expand(B, S, n).contiguous()
+    gc, gr, _ = prob_g.grasp.slice_with_jac_multi(k_rep)
+    grasp_worst = (gc + gr[:, None])[:, 0].flatten(1).amax(1)[feas_g].max().item()
+    assert grasp_worst <= 1e-6, f"grasp block at the returned k: {grasp_worst}"
+    home = grasp_pl.plan(np.array(Q_HOME), np.zeros(n), np.zeros(n),
+                         np.array(Q_HOME) + 0.3 * cfg.k_range, far)
+    assert not bool(home.feasible), "grasp: the sideways tray of the home pose must be infeasible"
+    emit(dict(out, max_grasp_value_feasible=grasp_worst, home_pose_feasible=bool(home.feasible)))
+    del grasp_pl, res_g, prob_g, gc, gr
+    torch.cuda.empty_cache()
+
+    # ---- 6. plan and track: the closed loop on the 128 plans of phase 4 ---
+    sim = SimConfig()
+    n_steps = int(round(sim.t_move / sim.plant_dt))
+    rng_true = np.random.default_rng(0)
+    true = TrueParams(rng_true.uniform(*sim.uncertain_mass_range, (B, spec.n_joints)),
+                      rng_true.uniform(*sim.uncertain_mass_range, (B, spec.n_joints)))
+    feas8 = res8.feasible
+    k8 = torch.where(feas8[:, None], res8.k, 0.0).double().cpu().numpy()   # infeasible: k = 0 brakes
+    traj = TrajParams(probs8.q0, probs8.qd0, probs8.qdd0, cfg.k_range * k8, np.zeros(B))
+    track_kw = dict(duration=cfg.duration, controller="robust", device=dev, dtype=torch.float32)
+    warm = dataclasses.replace(sim, t_move=10 * sim.plant_dt)
+    rollout(spec, warm, probs8.q0, probs8.qd0, traj, true, **track_kw)      # warm-up, 10 steps
+    t_roll, (q_end, qd_end, log) = wall(
+        torch, lambda: rollout(spec, sim, probs8.q0, probs8.qd0, traj, true, **track_kw), 1)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t_traced, _ = wall(torch, lambda: rollout(spec, warm, probs8.q0, probs8.qd0, traj, true,
+                                                  **track_kw), 1)
+    dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_s = sum(e.device_time for e in dev_events) * 1e-6
+    # host-side calls per step: a 20-step rollout against a 10-step one
+    warm20 = dataclasses.replace(sim, t_move=20 * sim.plant_dt)
+    calls = [count_tensor_calls(lambda s=s: rollout(spec, s, probs8.q0, probs8.qd0, traj, true, **track_kw))
+             for s in (warm, warm20)]
+    assert dev_events, "the profiler recorded no device activity"
+    pos_err = (log.q - log.q_ref).abs().amax(dim=(1, 2))                    # (B,)
+    vel_err = (log.qd - log.qd_ref).abs().amax(dim=(1, 2))
+    assert bool(torch.isfinite(log.q).all()) and bool(torch.isfinite(log.u).all())
+    assert log.q.shape == (B, int(round(sim.t_move / sim.check_dt)), n), log.q.shape
+    assert float(pos_err.max()) <= spec.qe, f"track: position error {float(pos_err.max())} > {spec.qe}"
+    assert float(vel_err.max()) <= 2 * spec.ultimate_bound, f"track: velocity error {float(vel_err.max())}"
+    n_log = log.q.shape[1]
+    obs_log = ObstacleSet(
+        torch.as_tensor(probs8.zonos, dtype=torch.float32, device=dev)[:, None].expand(-1, n_log, -1, -1, -1),
+        torch.as_tensor(probs8.masks, device=dev)[:, None].expand(-1, n_log, -1))
+    hits = arm_collision_check(spec, log.q, obs_log).any(dim=1)             # (B,)
+    assert not bool(hits[feas8].any()), "track: a feasible world's executed motion hits an obstacle"
+    emit({"phase": "track", "batch": B, "steps": n_steps, "plant_dt": sim.plant_dt,
+          "controller": "robust", "dtype": "float32", "seconds_per_rollout": t_roll,
+          "ms_per_rk4_step": t_roll / n_steps * 1e3,
+          "kernel_launches_per_step": len(dev_events) / 10,
+          "host_tensor_calls_per_step": (calls[1] - calls[0]) / 10,
+          "traced_10_steps": {"wall_s": t_traced, "device_busy_s": busy_s,
+                              "device_idle_share": 1.0 - busy_s / t_traced},
+          "max_pos_err": float(pos_err.max()), "qe": spec.qe,
+          "max_vel_err": float(vel_err.max()), "vel_bound": 2 * spec.ultimate_bound,
+          "feasible_worlds": int(feas8.sum()), "collisions_feasible": int(hits[feas8].sum()),
+          "collisions_infeasible_k0": int(hits[~feas8].sum())})
+    del log, obs_log, prof, dev_events
+
+    # ---- 7. card against CPU on the same paths ---------------------------
     cfg32 = dataclasses.replace(cfg, num_time_steps=32)
     probs4 = problem_set(cfg32, 4, n_obs=8, seed=0, device=dev)
     k_rand = np.random.default_rng(2).uniform(-0.6, 0.6, (4, max(S - 2, 1), n))
@@ -311,9 +476,40 @@ def main() -> int:
           "feasible_equal": all(same), "max_abs_k_diff": max(diffs), "atol": 1e-6,
           "card_kernel_launches": card_launches})
 
+    # one world for each of the other modes, and a short closed loop
+    obs0 = ObstacleSet(probs4.zonos[0], probs4.masks[0])
+    world0 = (probs4.q0[0], probs4.qd0[0], probs4.qdd0[0], probs4.q_des[0], obs0)
+    tray = (q_tray, np.zeros(n), np.zeros(n), q_tray + 0.3 * cfg.k_range, far)
+    mode_cases = (
+        ("orig", dict(traj_type="orig"), cfg32, world0),
+        ("smooth", {}, dataclasses.replace(cfg32, smooth_collision_tau=tau), world0),
+        ("grasp", dict(grasp=grasp), cfg32, tray),
+    )
+    for label, kw, c32, world in mode_cases:
+        rg = ArmourPlanner(spec, c32, dtype=torch.float64, device=dev, **kw).plan(*world, k_rand=k_rand[0])
+        rc = ArmourPlanner(spec, c32, dtype=torch.float64, device="cpu", **kw).plan(*world, k_rand=k_rand[0])
+        fg, fc = bool(rg.feasible), bool(rc.feasible)
+        assert fg == fc, f"{label}: card feasible={fg}, CPU feasible={fc}"
+        kg, kc = rg.k.cpu().numpy(), rc.k.numpy()
+        diff = float(np.abs(kg - kc).max()) if fg else 0.0
+        assert fg or (np.isnan(kg).all() and np.isnan(kc).all())
+        assert diff <= 1e-6, f"{label}: |k_card - k_cpu| = {diff}"
+        emit({"phase": "card_vs_cpu", "mode": label, "T": 32, "dtype": "float64",
+              "feasible": fg, "max_abs_k_diff": diff, "atol": 1e-6})
+    sim20 = dataclasses.replace(sim, t_move=20 * sim.plant_dt)
+    traj4 = TrajParams(probs4.q0, probs4.qd0, probs4.qdd0,
+                       cfg.k_range * np.random.default_rng(4).uniform(-1.0, 1.0, (4, n)), np.zeros(4))
+    true4 = TrueParams(true.mass_scale[:4], true.inertia_scale[:4])
+    ends = [rollout(spec, sim20, probs4.q0, probs4.qd0, traj4, true4, duration=cfg.duration,
+                    device=d, dtype=torch.float64)[0].cpu() for d in (dev, "cpu")]
+    end_diff = float((ends[0] - ends[1]).abs().max())
+    assert end_diff <= 1e-9, f"rollout: |q_end card - q_end CPU| = {end_diff}"
+    emit({"phase": "card_vs_cpu", "path": "rollout", "worlds": 4, "steps": 20,
+          "dtype": "float64", "max_abs_q_end_diff": end_diff, "atol": 1e-9})
+
     # ---- tail ------------------------------------------------------------
     order = ("fused_collision_value_jac_multi", "fused_collision_values_multi",
-             "fused_collision_value_jac")
+             "fused_collision_value_jac", pool_name)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     table = []

@@ -25,11 +25,13 @@ import torch
 import armour_tpu_torch
 from armour_tpu_torch import convert
 from armour_tpu_torch.collision import kernels
-from armour_tpu_torch.config import PlannerConfig
+from armour_tpu_torch.config import PlannerConfig, SimConfig
+from armour_tpu_torch.control.ilqr import tvlqr_gain_schedule
 from armour_tpu_torch.device import resolve_device
 from armour_tpu_torch.planner.armour import ArmourPlanner
 from armour_tpu_torch.problems import problem_set
 from armour_tpu_torch.robots.kinova import kinova_gen3_spec
+from armour_tpu_torch.sim.agent import TrajParams, TrueParams, rollout, rollout_direct
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = Path(armour_tpu_torch.__file__).resolve().parent
@@ -89,6 +91,28 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch):
         convert.packed_pz_from_numpy(*pz)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         convert.problem_from_numpy(pz, None, bank, 0.0, *np.zeros((4, 7)), np.ones((7, 2)))
+    # the plan-and-track entry points and their converters
+    spec, sim = kinova_gen3_spec(), SimConfig(t_move=0.01, plant_dt=5e-3)
+    z = np.zeros(7)
+    traj, true = (z, z, z, z, 0.0), (np.ones(7), np.ones(7))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.traj_params_from_numpy(*traj)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.true_params_from_numpy(*true)
+    traj_t = convert.traj_params_from_numpy(*traj, device="cpu")
+    true_t = convert.true_params_from_numpy(*true, device="cpu")
+    assert isinstance(traj_t, TrajParams) and isinstance(true_t, TrueParams)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rollout(spec, sim, z, z, traj_t, true_t)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rollout_direct(spec, sim, z, z, traj_t, true_t)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tvlqr_gain_schedule(spec, lambda t: (traj_t.q0, traj_t.q0, traj_t.q0), 0.01)
+    q_end, _, log = rollout(spec, sim, z, z, traj_t, true_t, device="cpu")
+    assert q_end.device == log.q.device == torch.device("cpu") and log.q.shape == (1, 7)
+    assert rollout_direct(spec, sim, z, z, traj_t, true_t, device="cpu")[2].u.shape == (1, 7)
+    gains, _ = tvlqr_gain_schedule(spec, lambda t: (traj_t.q0, traj_t.q0, traj_t.q0), 0.01, device="cpu")
+    assert gains.shape == (1, 7, 14) and gains.device == torch.device("cpu")
     assert convert.bank_from_numpy(*bank, device="cpu").A.device == torch.device("cpu")
     assert ArmourPlanner(kinova_gen3_spec(), cfg, device="cpu").device == torch.device("cpu")
     assert resolve_device("cpu") == torch.device("cpu")

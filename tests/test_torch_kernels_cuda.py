@@ -7,7 +7,8 @@ test skips).  This file imports no JAX, so it runs on a machine without it:
 
 Random banks cover every (A, offsets) type pair the kernels take, the
 obstacle buckets 8, 16 and 40, time axes that are not a multiple of the
-block, 1 to 8 starts, and banks with NaN offsets (a pair with a NaN never
+block, 1 to 8 starts (10, 16 and 20 for the values-only kernel, which takes
+16 in one launch and splits more into chunks), and banks with NaN offsets (a pair with a NaN never
 wins; a slot with none usable keeps g = 1e30, J = 0).  Tolerances: float32 offsets atol 2e-6 and
 float64 atol 1e-12 on values of order 1 (the kernel fuses multiply-adds
 where the plain version rounds each product); Jacobians on the slots
@@ -31,6 +32,11 @@ SHAPES = [  # B, S, n, L, O, T
     (2, 1, 7, 7, 8, 37),
     (1, 8, 3, 2, 3, 200),
     (2, 5, 7, 7, 16, 129),
+]
+VALUE_ONLY_SHAPES = [  # more starts than the Jacobian kernels take: values only
+    (2, 10, 7, 7, 8, 128),
+    (1, 16, 7, 7, 16, 37),
+    (1, 20, 7, 3, 8, 130),
 ]
 ATOL = {torch.float32: 2e-6, torch.float64: 1e-12}
 
@@ -64,13 +70,28 @@ def _poison(dpos, dneg, seed):
 
 
 @pytest.mark.parametrize("nan", [False, True], ids=["finite", "nan"])
-@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("shape", SHAPES + VALUE_ONLY_SHAPES, ids=lambda s: "x".join(map(str, s)))
 @pytest.mark.parametrize("types", TYPES, ids=lambda t: f"{str(t[0])[6:]}-{str(t[1])[6:]}")
 def test_kernels_match_plain(card, shape, types, nan):
     A, dpos, dneg, c, dc = _bank(shape, *types, seed=sum(shape), device=card)
     if nan:
         _poison(dpos, dneg, seed=sum(shape))
     atol = ATOL[types[1]]
+    if shape in VALUE_ONLY_SHAPES:
+        S = shape[1]
+        kernels.reset_launch_counts()
+        gv = kernels.fused_collision_values_multi(A, dpos, dneg, c)
+        torch.cuda.synchronize()
+        assert (gv - kernels.values_multi_plain(A, dpos, dneg, c)).abs().max().item() <= atol
+        assert bool(torch.isfinite(gv).all())
+        # each start's lane equals the single-start launch of the Jacobian kernel
+        g1, _ = kernels.fused_collision_value_jac(A, dpos, dneg, c[:, S - 1].contiguous(),
+                                                  dc[:, S - 1].contiguous())
+        assert torch.equal(gv[:, S - 1], g1)
+        assert kernels.launch_counts()["fused_collision_values_multi"] == -(-S // 16)
+        with pytest.raises(ValueError, match="at most 8 starts"):
+            kernels.fused_collision_value_jac_multi(A, dpos, dneg, c, dc)
+        return
     uniq = kernels.tie_mask(A, dpos, dneg, c, tol=1e-5)
     kernels.reset_launch_counts()
 
@@ -130,8 +151,9 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(card):
     A, dpos, dneg, c, dc = _bank((1, 2, 7, 7, 8, 16), torch.bfloat16, torch.float32, 1, card)
     with pytest.raises(ValueError, match="contiguous"):
         kernels.fused_collision_values_multi(A, dpos, dneg, c.transpose(-1, -2).contiguous().transpose(-1, -2))
-    with pytest.raises(ValueError, match="at most"):
-        kernels.fused_collision_values_multi(A, dpos, dneg, c[:, :1].expand(1, 9, 3, 7, 16).contiguous())
+    with pytest.raises(ValueError, match="at most 8 starts"):
+        kernels.fused_collision_value_jac_multi(A, dpos, dneg, c[:, :1].expand(1, 9, 3, 7, 16).contiguous(),
+                                                dc[:, :1].expand(1, 9, 7, 3, 7, 16).contiguous())
     with pytest.raises(ValueError, match="all must be on the CPU"):
         kernels.fused_collision_values_multi(A, dpos.cpu(), dneg, c)
     with pytest.raises(TypeError):
