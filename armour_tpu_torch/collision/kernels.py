@@ -13,11 +13,24 @@ Each wrapper dispatches on the device of the tensors it is given: CPU
 tensors go to the plain PyTorch version beside it (the batched form of the
 JAX ``impl="xla"`` pipeline, `zonotope.py:175-185`, `:227-256`); CUDA
 tensors go to the kernel, or the wrapper raises.  There is no fallback.
-Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+Each wrapper counts its kernel launches in ``<wrapper>.launches``.  Any
+number of starts is taken: one launch holds up to 8 with the Jacobian and
+16 without, and more go in chunks, one counted launch each.
+
+The kernel (one template, `bank_pass`) streams the bank through shared
+memory with Hopper's bulk asynchronous copies when the slab's rows are
+16-byte aligned, T divides 128 and the obstacle count is a multiple of the
+obstacles a thread owns (4 at the planner's shapes: buckets 8, 16, 40 and
+T = 128 all qualify); other shapes take scalar loads inside the same
+kernel.  The source's header comment has the design and what bounds it.
 
 The library is built at first use with ``nvcc`` into
-``armour_tpu_torch/build/`` (a plain C interface, loaded with ctypes).
-Layouts are those of the kernel source's header comment.
+``armour_tpu_torch/build/`` (a plain C interface, loaded with ctypes; about
+10-25 s).  ``build(verbose=True)`` returns the ``-Xptxas -v`` log and
+`ptxas_summary` turns it into registers and spill bytes per instantiation.
+`armour_tpu_torch.bench_bank` times this source beside another one (an
+earlier commit's) in one process.  Layouts are those of the kernel source's
+header comment.
 """
 
 from __future__ import annotations
@@ -26,6 +39,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -41,8 +55,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1, torch.float64: 2}
-_MAX_STARTS = 8         # value + Jacobian kernels: starts per launch
-_MAX_VALUE_STARTS = 16  # values-only kernel: starts per launch; more go in chunks
+_MAX_STARTS = 8         # value + Jacobian kernels: starts per launch; more go in chunks
+_MAX_VALUE_STARTS = 16  # values-only kernel: the same
 _START = -1e30  # the running max's start value
 
 
@@ -122,24 +136,31 @@ def _nvcc() -> str:
                        f"{SOURCE} at first use and need the CUDA toolkit")
 
 
-def library_path() -> Path:
-    """Where the built library lives; the name carries a hash of the source
-    and the flags, so an edit never loads a stale build."""
-    h = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"collision_bank-{h}.so"
+def library_path(source: Path = SOURCE, extra_flags: tuple = ()) -> Path:
+    """Where the built library lives; the name carries a hash of the source,
+    of every header beside it and of the flags, so an edit never loads a
+    stale build."""
+    source = Path(source)
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *extra_flags)).encode())
+    for f in (source, *sorted(source.parent.glob("*.cuh"))):
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
 
 
-def build(verbose: bool = False) -> dict:
+def build(verbose: bool = False, source: Path = SOURCE, extra_flags: tuple = ()) -> dict:
     """Compile the kernels unless the library for this source exists.
     Returns {"path", "seconds", "built", "log"}; ``verbose`` adds
-    ``-Xptxas -v`` (registers, spills) to the log."""
-    out = library_path()
+    ``-Xptxas -v`` (registers, spills) to the log.  ``source`` and
+    ``extra_flags`` build another version of the same C interface (an
+    earlier commit's source, say) for `bench_bank` to time beside this one."""
+    out = library_path(source, extra_flags)
     if out.exists():
         return {"path": str(out), "seconds": 0.0, "built": False, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", tmp, str(SOURCE)]
+    cmd = [_nvcc(), *NVCC_FLAGS, *extra_flags, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", tmp, str(source)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
@@ -150,9 +171,31 @@ def build(verbose: bool = False) -> dict:
     return {"path": str(out), "seconds": seconds, "built": True, "log": proc.stderr}
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = ctypes.CDLL(build()["path"])
+def ptxas_summary(log: str) -> list:
+    """One row per kernel of a ``-Xptxas -v`` log: {"kernel",
+    "registers", "spill_stores", "spill_loads"} (bytes per thread), the
+    instantiations of ``bank_pass`` under a readable name."""
+    rows, name, spill = [], None, (0, 0)
+    types = {"13__nv_bfloat16": "bf16", "f": "f32", "d": "f64"}
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            m = re.search(r"bank_passI(13__nv_bfloat16|f|d)(f|d)Li(\d+)ELb([01])E", name)
+            if m:  # bank_pass<A type, offsets' type, start bound, with Jacobian>
+                name = (f"bank_pass<{types[m[1]]},{types[m[2]]},S<={m[3]},"
+                        f"{'value+jac' if m[4] == '1' else 'values'}>")
+        elif "bytes spill stores" in line:
+            spill = tuple(int(x) for x in re.findall(r"(\d+) bytes spill", line))
+        elif "Used" in line and "registers" in line and name:
+            rows.append({"kernel": name, "registers": int(line.split("Used")[1].split()[0]),
+                         "spill_stores": spill[0], "spill_loads": spill[1]})
+            name, spill = None, (0, 0)
+    return rows
+
+
+def bind(path) -> ctypes.CDLL:
+    """Load a built library and declare the two entry points' C types."""
+    lib = ctypes.CDLL(str(path))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.armour_collision_value_jac_multi.argtypes = [
         ptr, i32, ptr, ptr, i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr]
@@ -161,6 +204,11 @@ def _lib() -> ctypes.CDLL:
     for fn in (lib.armour_collision_value_jac_multi, lib.armour_collision_values_multi):
         fn.restype = i32
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    return bind(build()["path"])
 
 
 def _raise_on(err: int, name: str):
@@ -220,22 +268,35 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def _launch_value_jac_multi(A, dpos, dneg, c, dc):
-    """Launch the value + Jacobian kernel on checked CUDA tensors; the
-    caller counts the launch."""
+def _launch_value_jac_multi(A, dpos, dneg, c, dc, lib=None):
+    """Launch the value + Jacobian kernel (of ``lib``, else of this source's
+    library) on checked CUDA tensors; the caller counts the launch."""
     B, P, _, L, O, T = A.shape
     S, n = dc.shape[1], dc.shape[2]
     g = torch.empty((B, S, L, O, T), dtype=dpos.dtype, device=dpos.device)
     J = torch.empty((B, S, n, L, O, T), dtype=dpos.dtype, device=dpos.device)
-    err = _lib().armour_collision_value_jac_multi(
+    err = (lib or _lib()).armour_collision_value_jac_multi(
         _ptr(A), _DTYPE_CODE[A.dtype], _ptr(dpos), _ptr(dneg), _DTYPE_CODE[dpos.dtype],
         _ptr(c), _ptr(dc), _ptr(g), _ptr(J), B, P, L, O, T, S, n, _stream())
     _raise_on(err, "armour_collision_value_jac_multi")
     return g, J
 
 
+def _launch_values_multi(A, dpos, dneg, c, lib=None):
+    """Launch the values-only kernel likewise."""
+    B, P, _, L, O, T = A.shape
+    S = c.shape[1]
+    g = torch.empty((B, S, L, O, T), dtype=dpos.dtype, device=dpos.device)
+    err = (lib or _lib()).armour_collision_values_multi(
+        _ptr(A), _DTYPE_CODE[A.dtype], _ptr(dpos), _ptr(dneg), _DTYPE_CODE[dpos.dtype],
+        _ptr(c), _ptr(g), B, P, L, O, T, S, _stream())
+    _raise_on(err, "armour_collision_values_multi")
+    return g
+
+
 def fused_collision_value_jac_multi(A, dpos, dneg, c, dc):
-    """Value + k-Jacobian for S starts in one pass over the bank.
+    """Value + k-Jacobian for S starts in one pass over the bank (up to 8
+    starts; more are split into chunks of 8, one launch each).
 
     A (B,P,3,L,O,T), dpos/dneg (B,P,L,O,T), c (B,S,3,L,T), dc (B,S,n,3,L,T)
     -> g (B,S,L,O,T), J (B,S,n,L,O,T)."""
@@ -247,7 +308,10 @@ def fused_collision_value_jac_multi(A, dpos, dneg, c, dc):
         return value_jac_multi_plain(A, dpos, dneg, c, dc)
     _check_contiguous(A, dpos, dneg, c, dc)
     if S > _MAX_STARTS:
-        raise ValueError(f"at most {_MAX_STARTS} starts with the Jacobian, got {S}")
+        parts = [fused_collision_value_jac_multi(A, dpos, dneg, c[:, s:s + _MAX_STARTS].contiguous(),
+                                                 dc[:, s:s + _MAX_STARTS].contiguous())
+                 for s in range(0, S, _MAX_STARTS)]
+        return torch.cat([g for g, _ in parts], dim=1), torch.cat([J for _, J in parts], dim=1)
     fused_collision_value_jac_multi.launches += 1
     return _launch_value_jac_multi(A, dpos, dneg, c, dc)
 
@@ -265,14 +329,8 @@ def fused_collision_values_multi(A, dpos, dneg, c):
     if S > _MAX_VALUE_STARTS:
         return torch.cat([fused_collision_values_multi(A, dpos, dneg, c[:, s:s + _MAX_VALUE_STARTS].contiguous())
                           for s in range(0, S, _MAX_VALUE_STARTS)], dim=1)
-    g = torch.empty((B, S, L, O, T), dtype=dpos.dtype, device=dpos.device)
-    lib = _lib()
     fused_collision_values_multi.launches += 1
-    err = lib.armour_collision_values_multi(
-        _ptr(A), _DTYPE_CODE[A.dtype], _ptr(dpos), _ptr(dneg), _DTYPE_CODE[dpos.dtype],
-        _ptr(c), _ptr(g), B, P, L, O, T, S, _stream())
-    _raise_on(err, "fused_collision_values_multi")
-    return g
+    return _launch_values_multi(A, dpos, dneg, c)
 
 
 def fused_collision_value_jac(A, dpos, dneg, c, dc):

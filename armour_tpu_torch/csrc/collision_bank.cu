@@ -8,8 +8,8 @@
 //   armour_collision_value_jac_multi  <- fused_collision_value_jac_multi  (pallas_kernel.py:108-186)
 //                                        and, at S = 1, fused_collision_value_jac (pallas_kernel.py:30-105)
 //   armour_collision_values_multi     <- fused_collision_values_multi     (pallas_kernel.py:189-237)
-// Both are one loop (bank_pass below): the values-only kernel drops the
-// Jacobian epilogue.
+// Both are one kernel template (bank_pass below): the values-only
+// instantiations drop the normals, the sign and the Jacobian epilogue.
 //
 // Semantics, shared with the Pallas kernels, for each (b, l, o, t) slot and
 // start s:  Ac = A.c,  vp = Ac - dpos,  vn = -Ac - dneg,  v = max(vp, vn);
@@ -24,21 +24,53 @@
 //   A (B,P,3,L,O,T)  dpos, dneg (B,P,L,O,T)  c (B,S,3,L,T)  dc (B,S,n,3,L,T)
 //   g (B,S,L,O,T)    J (B,S,n,L,O,T)
 //
-// Design: one thread per (b, l, o, t), t fastest, so every load and store
-// of the bank and the outputs coalesces along T.  Each thread keeps best[s]
-// and the winning signed normal for all S starts in registers, so the bank
-// slab is read from device memory ONCE for all starts (the point of the
-// _multi kernel, pallas_kernel.py:109-112).  S is bounded by a template
-// parameter: 1, 4 or 8 starts with the Jacobian (seven register arrays),
-// and up to 16 for the values-only kernel (four arrays, no normals), which
-// serves the planner's verification pool of 2S + 2 candidates in one pass.
-//
 // Bound: memory.  Per launch the kernel must read the bank once and write g
-// and J once; the arithmetic is ~10 operations per (slot, start, pair).  At
-// the main path's shapes (B=128, S=4, n=7, L=7, O=8, T=128, bf16 A, f32
+// and J once; the arithmetic is ~10 operations per (slot, start, pair), a
+// depth-3 product followed by a compare-and-select, which is no work for the
+// tensor cores (wgmma wants a depth of 16 and has no max/argmax).  At the
+// main path's shapes (B=128, S=4, n=7, L=7, O=8, T=128, bf16 A, f32
 // offsets): 198 MB of A + 264 MB of offsets + 44 MB of c/dc + 118 MB of
-// g/J = 624 MB per launch (2.94 GB at O=40).  This first version stages
-// nothing through shared memory (no TMA / cp.async pipeline yet).
+// g/J = 624 MB per launch (2.94 GB at O=40).  What a memory-bound kernel
+// needs is enough bytes in flight (3.35 TB/s times ~1 us of latency is about
+// 25 KB for each of the 132 SMs) without paying for them in registers, and
+// few enough instructions per slot that issuing them hides under the copies.
+//
+// Design.
+// * A thread owns one (link, time step) and V obstacles of it (V = 4, 2 or
+//   1): its slots are T apart on the flat (L,O,T) axis.  The centre c and its
+//   k-derivative dc depend on (start, link, time) only, so the thread holds c
+//   once for its V obstacles and the epilogue reads each dc element once per
+//   V outputs (re-reading dc per obstacle from L2 cost 0.06 ms of 0.30 ms).
+//   A block is 128 consecutive (link, obstacle group, time) items, whatever
+//   T is: no thread idles at small T.
+// * The bank reaches the arithmetic through shared memory.  For a fixed
+//   (b, pair, component) the whole (L,O,T) slab is contiguous, and when T
+//   divides 128 and V divides O a block's slots are one contiguous tile of
+//   128*V slots.  A ring of kStages stages holds one hyperplane pair each
+//   (three rows of A, one of dpos, one of dneg for the tile); thread 0 fills
+//   a stage with five 1-D bulk copies (cp.async.bulk, the TMA unit without a
+//   tensor map) that signal the stage's mbarrier; every thread waits on the
+//   barrier, reads its V slots, and after a __syncthreads thread 0 refills
+//   the stage with the pair kStages ahead.  The copies cost no registers, so
+//   occupancy no longer limits the bytes in flight (4 stages of 7 KB per
+//   block at the main shapes), and the bank slab is read from device memory
+//   ONCE for all starts (the point of the _multi kernel,
+//   pallas_kernel.py:109-112).  With the arithmetic taken out the kernel
+//   runs no faster: the instruction stream hides under the copies.
+// * Each thread keeps best[s] and, with the Jacobian, the winning signed
+//   normal of its V obstacles for all starts in registers.  V is the most of
+//   4, 2, 1 whose state stays within 80 registers.  The start count is a
+//   template bound: 1, 4, 8 with the Jacobian; 1, 4, 10 (the verification
+//   pool of 2S + 2 candidates), 16 without.  The pair loop carries no
+//   `s < S` test: starts above S compute on c = 0 and are not stored; more
+//   starts than the largest bound go in chunks (the wrapper).
+// * The values-only body needs neither the sign nor the normals: three
+//   multiply-adds, two subtractions, one maximum and a NaN-guarded maximum.
+// * Bulk copies need 16-byte alignment of every row: N * sizeof(A's type) a
+//   multiple of 16 and aligned base pointers.  Shapes that miss that, a T
+//   that does not divide 128 or an O that V does not divide take the direct
+//   path inside the same kernel: the same ownership, scalar loads from device
+//   memory that coalesce along t, any P, L, O, T.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -59,66 +91,217 @@ __device__ __forceinline__ double upcast<__nv_bfloat16, double>(__nv_bfloat16 x)
   return static_cast<double>(__bfloat162float(x));
 }
 
+__device__ __forceinline__ float max_of(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double max_of(double a, double b) { return fmax(a, b); }
+
 constexpr int kThreads = 128;
+constexpr int kStages = 4;           // pairs in flight per block
+constexpr int kStateRegisters = 80;  // budget for the per-thread running state
+
+// Obstacles per thread: the most of 4, 2, 1 whose running state (c for every
+// start, and per obstacle best plus, with the Jacobian, the normal) fits the
+// register budget.  (8 fit at one start, but tiles of 1024 slots left too
+// few blocks on an SM and ran slower; asking ptxas for 5 or 6 blocks per SM
+// through __launch_bounds__ made it spill and ran slower too.)
+constexpr int state_words(int starts, int v, bool jac, int word) {
+  return starts * (3 + v * (jac ? 4 : 1)) * word;
+}
+
+template <typename OT, int MAXS, bool JAC>
+struct ObstaclesPerThread {
+  static constexpr int W = static_cast<int>(sizeof(OT) / 4);
+  static constexpr int value = state_words(MAXS, 4, JAC, W) <= kStateRegisters   ? 4
+                               : state_words(MAXS, 2, JAC, W) <= kStateRegisters ? 2
+                                                                                 : 1;
+};
+
+// ---- Hopper asynchronous copies ------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Spin until the barrier's phase differs from `parity`.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// 1-D bulk copy, device memory -> shared memory, completion on an mbarrier.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(dst), "l"(__cvta_generic_to_global(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// ---- the arithmetic of one hyperplane pair: V obstacles, all starts --------
+
+template <typename OT, int MAXS, int NJ, bool JAC, int V>
+__device__ __forceinline__ void pair_update(
+    const OT (&A0)[V], const OT (&A1)[V], const OT (&A2)[V], const OT (&dp)[V],
+    const OT (&dn)[V], const OT (&cx)[MAXS], const OT (&cy)[MAXS], const OT (&cz)[MAXS],
+    OT (&best)[MAXS][V], OT (&a0)[NJ][V], OT (&a1)[NJ][V], OT (&a2)[NJ][V]) {
+#pragma unroll
+  for (int s = 0; s < MAXS; ++s) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const OT Ac = A0[j] * cx[s] + A1[j] * cy[s] + A2[j] * cz[s];
+      const OT vp = Ac - dp[j];
+      const OT vn = -Ac - dn[j];
+      if constexpr (JAC) {
+        const bool pos = vp >= vn;
+        const OT v = pos ? vp : vn;
+        // strict '>': the first maximum wins; (x == x) is false for NaN
+        if (vp == vp && vn == vn && v > best[s][j]) {
+          best[s][j] = v;
+          a0[s][j] = pos ? -A0[j] : A0[j];
+          a1[s][j] = pos ? -A1[j] : A1[j];
+          a2[s][j] = pos ? -A2[j] : A2[j];
+        }
+      } else {
+        // fmax would drop a NaN operand, which is not the rule: a pair with
+        // a NaN in either piece is skipped whole
+        const OT v = max_of(vp, vn);
+        if (vp == vp && vn == vn) best[s][j] = max_of(best[s][j], v);
+      }
+    }
+  }
+}
 
 template <typename AT, typename OT, int MAXS, bool JAC>
 __global__ void __launch_bounds__(kThreads) bank_pass(
     const AT* __restrict__ A, const OT* __restrict__ dpos, const OT* __restrict__ dneg,
     const OT* __restrict__ c, const OT* __restrict__ dc, OT* __restrict__ g,
-    OT* __restrict__ J, int P, int L, int O, int T, int S, int n) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= T) return;
-  const int lo = blockIdx.y;  // l * O + o
-  const int l = lo / O;
-  const int64_t b = blockIdx.z;
-  const int64_t LT = (int64_t)L * T;
-  const int64_t LOT = (int64_t)L * O * T;
-  const int64_t slot = (int64_t)lo * T + t;  // offset inside one (L,O,T) slab
-
+    OT* __restrict__ J, int P, int L, int O, int T, int S, int n, int staged) {
+  constexpr int V = ObstaclesPerThread<OT, MAXS, JAC>::value;
+  constexpr int TILE = kThreads * V;
   constexpr int NJ = JAC ? MAXS : 1;  // no normals are kept without the Jacobian
-  OT cx[MAXS], cy[MAXS], cz[MAXS], best[MAXS], a0[NJ], a1[NJ], a2[NJ];
+  constexpr int ROW_A = TILE * static_cast<int>(sizeof(AT));
+  constexpr int ROW_O = TILE * static_cast<int>(sizeof(OT));
+  constexpr int STAGE = 3 * ROW_A + 2 * ROW_O;
+  extern __shared__ __align__(128) unsigned char smem[];  // kStages barriers, then the ring
+
+  // The thread's item: link l, obstacles og*V .. og*V+V-1, time step t.
+  const int tid = threadIdx.x;
+  const int OG = (O + V - 1) / V;  // obstacle groups of one link
+  const int N = L * O * T;         // slots of one world; the launch checks that it fits an int
+  const int q0 = blockIdx.x * kThreads;
+  const int q = q0 + tid;
+  const bool live_q = q < L * OG * T;
+  const int t = q % T, lg = q / T;
+  const int l = lg / OG, og = lg % OG;
+  const int slot0 = (l * O + og * V) * T + t;  // obstacle j of the thread: slot0 + j * T
+  const int ct = l * T + t;                    // the thread's offset in the (L,T) rows of c, dc
+  bool live[V];
 #pragma unroll
-  for (int s = 0; s < NJ; ++s) a0[s] = a1[s] = a2[s] = static_cast<OT>(0);
+  for (int j = 0; j < V; ++j) live[j] = live_q && og * V + j < O;
+  const int64_t LT = (int64_t)L * T;
+  const int64_t b = blockIdx.y;
+  const AT* Aw = A + b * P * 3 * N;  // the world's bank: row r of A at Aw + r * N
+  const OT* Dp = dpos + b * P * N;
+  const OT* Dn = dneg + b * P * N;
+
+  // Staged (the launch grants it when O % V == 0, 128 % T == 0 and every row
+  // is 16-byte aligned): the block's 128 items are whole runs of T time
+  // steps, so its slots are the contiguous tile [q0 * V, q0 * V + count).
+  const uint32_t bars = smem_u32(smem);
+  const uint32_t ring = bars + 128;
+  const int tile0 = q0 * V;
+  const int count = min(TILE, N - tile0);
+  const uint32_t bytes_a = count * static_cast<uint32_t>(sizeof(AT));
+  const uint32_t bytes_o = count * static_cast<uint32_t>(sizeof(OT));
+  auto fill = [&](int p, int stage) {
+    const uint32_t bar = bars + 8 * stage;
+    const uint32_t dst = ring + stage * STAGE;
+    const AT* Ap = Aw + (int64_t)3 * p * N + tile0;
+    mbar_expect_tx(bar, 3 * bytes_a + 2 * bytes_o);
+    bulk_copy(dst, Ap, bytes_a, bar);
+    bulk_copy(dst + ROW_A, Ap + N, bytes_a, bar);
+    bulk_copy(dst + 2 * ROW_A, Ap + 2 * (int64_t)N, bytes_a, bar);
+    bulk_copy(dst + 3 * ROW_A, Dp + (int64_t)p * N + tile0, bytes_o, bar);
+    bulk_copy(dst + 3 * ROW_A + ROW_O, Dn + (int64_t)p * N + tile0, bytes_o, bar);
+  };
+  if (staged) {
+    if (tid == 0) {
+      for (int s = 0; s < kStages; ++s) mbar_init(bars + 8 * s, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+    if (tid == 0)
+      for (int p = 0; p < kStages && p < P; ++p) fill(p, p);
+  }
+
+  OT cx[MAXS], cy[MAXS], cz[MAXS], best[MAXS][V], a0[NJ][V], a1[NJ][V], a2[NJ][V];
+#pragma unroll
+  for (int s = 0; s < NJ; ++s)
+#pragma unroll
+    for (int j = 0; j < V; ++j) a0[s][j] = a1[s][j] = a2[s][j] = static_cast<OT>(0);
 #pragma unroll
   for (int s = 0; s < MAXS; ++s) {
-    best[s] = static_cast<OT>(-1e30);
-    cx[s] = cy[s] = cz[s] = static_cast<OT>(0);
-    if (s < S) {
-      const OT* cs = c + (b * S + s) * 3 * LT + (int64_t)l * T + t;
+#pragma unroll
+    for (int j = 0; j < V; ++j) best[s][j] = static_cast<OT>(-1e30);
+    cx[s] = cy[s] = cz[s] = static_cast<OT>(0);  // starts above S run on c = 0, unstored
+    if (s < S && live_q) {
+      const OT* cs = c + (b * S + s) * 3 * LT + ct;
       cx[s] = cs[0];
       cy[s] = cs[LT];
       cz[s] = cs[2 * LT];
     }
   }
 
-  const AT* Ab = A + b * P * 3 * LOT + slot;
-  const OT* Dp = dpos + b * P * LOT + slot;
-  const OT* Dn = dneg + b * P * LOT + slot;
-  for (int p = 0; p < P; ++p) {
-    const OT A0 = upcast<AT, OT>(Ab[(int64_t)(3 * p + 0) * LOT]);
-    const OT A1 = upcast<AT, OT>(Ab[(int64_t)(3 * p + 1) * LOT]);
-    const OT A2 = upcast<AT, OT>(Ab[(int64_t)(3 * p + 2) * LOT]);
-    const OT dp = Dp[(int64_t)p * LOT];
-    const OT dn = Dn[(int64_t)p * LOT];
+  OT A0[V], A1[V], A2[V], dp[V], dn[V];
+  if (staged) {
+    const int rel = live_q ? slot0 - tile0 : 0;  // the thread's first slot inside the tile
+    for (int p = 0; p < P; ++p) {
+      const int stage = p % kStages;
+      mbar_wait(bars + 8 * stage, (p / kStages) & 1);
+      const unsigned char* row = smem + 128 + stage * STAGE;
 #pragma unroll
-    for (int s = 0; s < MAXS; ++s) {
-      if (s < S) {
-        const OT Ac = A0 * cx[s] + A1 * cy[s] + A2 * cz[s];
-        const OT vp = Ac - dp;
-        const OT vn = -Ac - dn;
-        const bool pos = vp >= vn;
-        const OT v = pos ? vp : vn;
-        // strict '>': the first maximum wins; (x == x) is false for NaN
-        if (vp == vp && vn == vn && v > best[s]) {
-          best[s] = v;
-          if constexpr (JAC) {
-            const OT sg = pos ? static_cast<OT>(-1) : static_cast<OT>(1);
-            a0[s] = sg * A0;
-            a1[s] = sg * A1;
-            a2[s] = sg * A2;
-          }
-        }
+      for (int j = 0; j < V; ++j) {
+        const int at = rel + j * T;
+        A0[j] = upcast<AT, OT>(reinterpret_cast<const AT*>(row)[at]);
+        A1[j] = upcast<AT, OT>(reinterpret_cast<const AT*>(row + ROW_A)[at]);
+        A2[j] = upcast<AT, OT>(reinterpret_cast<const AT*>(row + 2 * ROW_A)[at]);
+        dp[j] = reinterpret_cast<const OT*>(row + 3 * ROW_A)[at];
+        dn[j] = reinterpret_cast<const OT*>(row + 3 * ROW_A + ROW_O)[at];
       }
+      __syncthreads();  // every thread holds its part of the stage: refill it
+      if (tid == 0 && p + kStages < P) fill(p + kStages, stage);
+      pair_update<OT, MAXS, NJ, JAC, V>(A0, A1, A2, dp, dn, cx, cy, cz, best, a0, a1, a2);
+    }
+  } else {
+    // direct path: any P, L, O, T, scalar loads that coalesce along t
+    for (int p = 0; p < P; ++p) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const int64_t at = slot0 + j * T;
+        const bool in = live[j];
+        A0[j] = in ? upcast<AT, OT>(Aw[(int64_t)(3 * p) * N + at]) : static_cast<OT>(0);
+        A1[j] = in ? upcast<AT, OT>(Aw[(int64_t)(3 * p + 1) * N + at]) : static_cast<OT>(0);
+        A2[j] = in ? upcast<AT, OT>(Aw[(int64_t)(3 * p + 2) * N + at]) : static_cast<OT>(0);
+        dp[j] = in ? Dp[(int64_t)p * N + at] : static_cast<OT>(0);
+        dn[j] = in ? Dn[(int64_t)p * N + at] : static_cast<OT>(0);
+      }
+      pair_update<OT, MAXS, NJ, JAC, V>(A0, A1, A2, dp, dn, cx, cy, cz, best, a0, a1, a2);
     }
   }
 
@@ -126,15 +309,52 @@ __global__ void __launch_bounds__(kThreads) bank_pass(
   for (int s = 0; s < MAXS; ++s) {
     if (s < S) {
       const int64_t bs = b * S + s;
-      g[bs * LOT + slot] = -best[s];
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        if (live[j]) g[bs * N + slot0 + j * T] = -best[s][j];
       if constexpr (JAC) {
         for (int i = 0; i < n; ++i) {
-          const OT* d = dc + (bs * n + i) * 3 * LT + (int64_t)l * T + t;
-          J[(bs * n + i) * LOT + slot] = a0[s] * d[0] + a1[s] * d[LT] + a2[s] * d[2 * LT];
+          // one read of dc serves the thread's V obstacles
+          const OT* d = dc + (bs * n + i) * 3 * LT + ct;
+          const OT dx = live_q ? d[0] : static_cast<OT>(0);
+          const OT dy = live_q ? d[LT] : static_cast<OT>(0);
+          const OT dz = live_q ? d[2 * LT] : static_cast<OT>(0);
+          OT* Ji = J + (bs * n + i) * N + slot0;
+#pragma unroll
+          for (int j = 0; j < V; ++j)
+            if (live[j]) Ji[j * T] = a0[s][j] * dx + a1[s][j] * dy + a2[s][j] * dz;
         }
       }
     }
   }
+}
+
+inline bool aligned(const void* p, size_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+template <typename AT, typename OT, int MAXS, bool JAC>
+int launch_bound(const AT* A, const OT* dpos, const OT* dneg, const OT* c, const OT* dc, OT* g,
+                 OT* J, int B, int P, int L, int O, int T, int S, int n, cudaStream_t stream) {
+  constexpr int V = ObstaclesPerThread<OT, MAXS, JAC>::value;
+  constexpr int TILE = kThreads * V;
+  constexpr int SMEM = 128 + kStages * TILE * static_cast<int>(3 * sizeof(AT) + 2 * sizeof(OT));
+  static_assert(kStages * 8 <= 128 && SMEM <= 232448, "the ring must fit a block's shared memory");
+  const int64_t N = (int64_t)L * O * T;
+  // staging: a block's items are whole (obstacle group, T) runs, and every
+  // row of its tile starts and ends on a 16-byte boundary
+  const bool staged = O % V == 0 && kThreads % T == 0 && (N * sizeof(AT)) % 16 == 0 &&
+                      aligned(A, 16) && aligned(dpos, 16) && aligned(dneg, 16);
+  auto kernel = bank_pass<AT, OT, MAXS, JAC>;
+  if (SMEM > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int64_t items = (int64_t)L * ((O + V - 1) / V) * T;
+  const dim3 grid((unsigned)((items + kThreads - 1) / kThreads), B);
+  kernel<<<grid, kThreads, SMEM, stream>>>(A, dpos, dneg, c, dc, g, J, P, L, O, T, S, n, staged);
+  return (int)cudaGetLastError();
 }
 
 template <typename AT, typename OT, bool JAC>
@@ -144,9 +364,7 @@ int launch(const void* A, const void* dpos, const void* dneg, const void* c, con
   if (B < 1 || P < 1 || L < 1 || O < 1 || T < 1 || S < 1 || (JAC && n < 1)) {
     return (int)cudaErrorInvalidValue;
   }
-  if ((int64_t)L * O > 65535 || B > 65535) return (int)cudaErrorInvalidConfiguration;
-  const dim3 block(kThreads);
-  const dim3 grid((T + kThreads - 1) / kThreads, L * O, B);
+  if ((int64_t)L * O * T >= (int64_t)1 << 30 || B > 65535) return (int)cudaErrorInvalidConfiguration;
   const AT* a = static_cast<const AT*>(A);
   const OT* p = static_cast<const OT*>(dpos);
   const OT* m = static_cast<const OT*>(dneg);
@@ -154,22 +372,18 @@ int launch(const void* A, const void* dpos, const void* dneg, const void* c, con
   const OT* dd = static_cast<const OT*>(dc);
   OT* gg = static_cast<OT*>(g);
   OT* jj = static_cast<OT*>(J);
-  if (S <= 1) {
-    bank_pass<AT, OT, 1, JAC><<<grid, block, 0, stream>>>(a, p, m, cc, dd, gg, jj, P, L, O, T, S, n);
-  } else if (S <= 4) {
-    bank_pass<AT, OT, 4, JAC><<<grid, block, 0, stream>>>(a, p, m, cc, dd, gg, jj, P, L, O, T, S, n);
-  } else if (S <= 8) {
-    bank_pass<AT, OT, 8, JAC><<<grid, block, 0, stream>>>(a, p, m, cc, dd, gg, jj, P, L, O, T, S, n);
+#define BANK_LAUNCH(BOUND) \
+  return launch_bound<AT, OT, BOUND, JAC>(a, p, m, cc, dd, gg, jj, B, P, L, O, T, S, n, stream)
+  if (S <= 1) BANK_LAUNCH(1);
+  if (S <= 4) BANK_LAUNCH(4);
+  if constexpr (JAC) {
+    if (S <= 8) BANK_LAUNCH(8);
   } else {
-    if constexpr (!JAC) {
-      if (S <= 16) {
-        bank_pass<AT, OT, 16, false><<<grid, block, 0, stream>>>(a, p, m, cc, dd, gg, jj, P, L, O, T, S, n);
-        return (int)cudaGetLastError();
-      }
-    }
-    return (int)cudaErrorInvalidValue;
+    if (S <= 10) BANK_LAUNCH(10);
+    if (S <= 16) BANK_LAUNCH(16);
   }
-  return (int)cudaGetLastError();
+#undef BANK_LAUNCH
+  return (int)cudaErrorInvalidValue;  // more starts than one launch takes: the caller chunks
 }
 
 // dtype codes: 0 = bfloat16, 1 = float32, 2 = float64.  A is stored in a
@@ -199,7 +413,7 @@ int dispatch(const void* A, int a_dtype, const void* dpos, const void* dneg, int
 
 extern "C" {
 
-// Value + k-Jacobian for S <= 8 starts in one bank pass.
+// Value + k-Jacobian for S <= 8 starts in one bank pass (more: invalid value).
 int armour_collision_value_jac_multi(const void* A, int a_dtype, const void* dpos,
                                      const void* dneg, int o_dtype, const void* c,
                                      const void* dc, void* g, void* J, int B, int P, int L,
@@ -208,7 +422,7 @@ int armour_collision_value_jac_multi(const void* A, int a_dtype, const void* dpo
                         stream);
 }
 
-// Values only for S <= 16 starts in one bank pass.
+// Values only for S <= 16 starts in one bank pass (more: invalid value).
 int armour_collision_values_multi(const void* A, int a_dtype, const void* dpos,
                                   const void* dneg, int o_dtype, const void* c, void* g, int B,
                                   int P, int L, int O, int T, int S, void* stream) {

@@ -5,19 +5,24 @@
 
 Phases (each prints one JSON line; any failure exits non-zero):
   1. device   card name and power limit, torch/CUDA versions, TF32 flags
-  2. build    nvcc build of armour_tpu_torch/csrc/collision_bank.cu
+  2. build    nvcc build of armour_tpu_torch/csrc/collision_bank.cu; fails
+              if ptxas reports a spill in any instantiation
   3. kernels  each of the three collision kernels against its plain PyTorch
               version on a bank built by the planner's own main path
               (seed 0, B=128, T=128, bucket 8, bf16 A; then an f64 bank),
               with CUDA-event times, bytes moved and the memory/compute bound;
               the values-only kernel also at the 10 candidates of the
-              smooth-mode verification pool
+              smooth-mode verification pool, the value + Jacobian kernel also
+              at 12 starts (two launches) and on the 40-obstacle bank
+              (bucket 16); then small random banks at T=32 (staged path) and
+              at a slab whose rows are not 16-byte aligned (direct path)
   4. main     ArmourPlanner.plan_batch at B=128, T=128, 8 obstacles: time,
               feasibility and kernel launches per plan; then the 40-obstacle
               point and the batch-1 latency; then the collision check of the
               returned plans (values_multi and single-start value_jac)
-  5. modes    one plan_batch at the same width for traj_type="orig", for
-              smooth collision (tau = 1e-3) and with grasp constraints
+  5. modes    one plan_batch at the same width for traj_type="orig", with
+              12 starts, for smooth collision (tau = 1e-3) and with grasp
+              constraints
   6. track    one closed-loop rollout of the 128 plans of phase 4: robust
               controller, RK4 plant at 5e-4 s, 1,000 steps, all worlds at once
   7. parity   plan() on the card against plan() on the CPU (4 worlds, then
@@ -127,6 +132,7 @@ def main() -> int:
         return 2
     from armour_tpu_torch.collision import kernels
     from armour_tpu_torch.collision.zonotope import (
+        BufferedHyperplanes,
         ObstacleSet,
         collision_constraints_with_jac,
         collision_values_multi,
@@ -160,9 +166,13 @@ def main() -> int:
     info = kernels.build(verbose=True)
     with open(os.path.join(out_dir, "collision_bank_ptxas.txt"), "w") as f:
         f.write(info["log"])
-    regs = sorted({ln.split("Used")[1].strip() for ln in info["log"].splitlines() if "Used" in ln})
+    ptxas = kernels.ptxas_summary(info["log"])
+    spilling = [r for r in ptxas if r["spill_stores"] or r["spill_loads"]]
     emit({"phase": "build", "seconds": round(info["seconds"], 3), "built": info["built"],
-          "library": os.path.relpath(info["path"]), "ptxas_used": regs[:12]})
+          "library": os.path.relpath(info["path"]), "instantiations": len(ptxas),
+          "registers_f32_offsets": {r["kernel"]: r["registers"] for r in ptxas if ",f32," in r["kernel"]},
+          "max_registers": max((r["registers"] for r in ptxas), default=None), "spilling": spilling})
+    assert not info["built"] or (ptxas and not spilling), f"ptxas reports spills: {spilling}"
 
     spec = kinova_gen3_spec()
     cfg = PlannerConfig()
@@ -175,7 +185,63 @@ def main() -> int:
     S_pool = 2 * S + 2   # the smooth-mode verification pool: ONE values-only launch
     K_pool_np = np.random.default_rng(3).uniform(-0.9, 0.9, (B, S_pool, n))
     pool_name = f"fused_collision_values_multi[S={S_pool}]"
+    S_many = 12          # more starts than one value + Jacobian launch takes: two launches
+    K_many_np = np.random.default_rng(5).uniform(-0.9, 0.9, (B, S_many, n))
+    many_name = f"fused_collision_value_jac_multi[S={S_many}]"
+    wide_name = "fused_collision_value_jac_multi[O=16]"   # the 40-obstacle bank
     rows = {}
+
+    def check_and_time(hp, dtype, tol, kern, args, jac, uniq, name, timed, table=rows):
+        """Hold kern(*args) against its plain version (Jacobians on the slots
+        `uniq` whose winner is no tie) and note the error in `table`; with
+        `timed`, add the row's times."""
+        plain = kernels.PLAIN[kern]
+        got, ref = kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        single = kern is kernels.fused_collision_value_jac
+        if jac:
+            gk, Jk = got
+            gp, Jp = ref
+            if single:
+                gk, Jk, gp, Jp = gk[:, None], Jk[:, None], gp[:, None], Jp[:, None]
+            gk, Jk = mask_dead(hp, gk, Jk)
+            gp, Jp = mask_dead(hp, gp, Jp)
+            u = uniq[:, :, None]
+            err_g = (gk - gp).abs().max().item()
+            err_J = ((Jk - Jp).abs() * u).max().item()
+        else:
+            err_g = (mask_dead(hp, got) - mask_dead(hp, ref)).abs().max().item()
+            err_J = 0.0
+        ok = err_g <= tol and err_J <= tol and bool(torch.isfinite(gk if jac else got).all())
+        row = table.setdefault(name, {})
+        row[f"max_abs_err_{str(dtype)[6:]}"] = max(err_g, err_J)
+        emit({"phase": "kernel_check", "kernel": name, "dtype": str(dtype)[6:],
+              "A_dtype": str(hp.A.dtype)[6:], "shape_bank": list(hp.A.shape),
+              "err_g": err_g, "err_J_tie_masked": err_J, "atol": tol,
+              "unique_fraction": round(float(uniq.float().mean()), 6), "ok": ok})
+        assert ok, f"{name} disagrees with its plain version in {dtype}"
+        if not timed:
+            return
+        # times at the main path's shapes (f32 offsets, bf16 A)
+        outs = got if jac else (got,)
+        Sx = 1 if single else args[3].shape[1]
+        Bk, P, _, L, O, T = hp.A.shape
+        ops = Bk * Sx * L * O * T * (P * _OPS_PER_PIECE + (n * _OPS_PER_JAC if jac else 0))
+        moved = nbytes(*args, *outs)
+        b_mem, b_ops = moved / peak_bw * 1e3, ops / peak_f32 * 1e3
+        row.update({
+            "name": name, "wrapper": kern.__name__, "route": "cuda",
+            "source": "armour_tpu_torch/csrc/collision_bank.cu",
+            "ms": time_ms(torch, lambda: kern(*args)),
+            "plain_ms": time_ms(torch, lambda: plain(*args), reps=20, warmup=2),
+            "bytes": moved, "ops": ops,
+            "bound_ms": max(b_mem, b_ops), "bound_by": "bytes" if b_mem >= b_ops else "operations",
+            "library_ms": None,
+            "shapes": {"B": Bk, "S": Sx, "n": n, "P": P, "L": L, "O": O, "T": T},
+        })
+        emit({"phase": "kernel_time", **{k: row[k] for k in
+              ("name", "ms", "plain_ms", "bytes", "bound_ms", "bound_by", "shapes")}})
+
     for dtype, tol in ((torch.float32, 2e-6), (torch.float64, 1e-12)):
         planner = ArmourPlanner(spec, cfg, dtype=dtype, device=dev)
         prob = planner.build_probs(probs8.q0, probs8.qd0, probs8.qdd0, probs8.zonos, probs8.masks)
@@ -196,56 +262,61 @@ def main() -> int:
              pool_name),
         )
         for kern, args, jac, uniq, row_name in cases:
-            name = row_name or kern.__name__
-            plain = kernels.PLAIN[kern]
-            got, ref = kern(*args), plain(*args)
-            torch.cuda.synchronize()
-            single = kern is kernels.fused_collision_value_jac
-            if jac:
-                gk, Jk = got
-                gp, Jp = ref
-                if single:
-                    gk, Jk, gp, Jp = gk[:, None], Jk[:, None], gp[:, None], Jp[:, None]
-                gk, Jk = mask_dead(hp, gk, Jk)
-                gp, Jp = mask_dead(hp, gp, Jp)
-                u = uniq[:, :, None]
-                err_g = (gk - gp).abs().max().item()
-                err_J = ((Jk - Jp).abs() * u).max().item()
-            else:
-                err_g = (mask_dead(hp, got) - mask_dead(hp, ref)).abs().max().item()
-                err_J = 0.0
-            ok = err_g <= tol and err_J <= tol and bool(torch.isfinite(gk if jac else got).all())
-            row = rows.setdefault(name, {})
-            row[f"max_abs_err_{str(dtype)[6:]}"] = max(err_g, err_J)
-            emit({"phase": "kernel_check", "kernel": name, "dtype": str(dtype)[6:],
-                  "A_dtype": str(hp.A.dtype)[6:], "shape_bank": list(hp.A.shape),
-                  "err_g": err_g, "err_J_tie_masked": err_J, "atol": tol,
-                  "unique_fraction": round(float(uniq.float().mean()), 6), "ok": ok})
-            assert ok, f"{name} disagrees with its plain version in {dtype}"
-            if dtype != torch.float32:
-                continue
-            # times at the main path's shapes (f32 offsets, bf16 A)
-            outs = got if jac else (got,)
-            Sx = 1 if single else args[3].shape[1]
-            Bk, P, _, L, O, T = hp.A.shape
-            ops = Bk * Sx * L * O * T * (P * _OPS_PER_PIECE + (n * _OPS_PER_JAC if jac else 0))
-            moved = nbytes(*args, *outs)
-            b_mem, b_ops = moved / peak_bw * 1e3, ops / peak_f32 * 1e3
-            row.update({
-                "name": name, "wrapper": kern.__name__, "route": "cuda",
-                "source": "armour_tpu_torch/csrc/collision_bank.cu",
-                "ms": time_ms(torch, lambda: kern(*args)),
-                "plain_ms": time_ms(torch, lambda: plain(*args), reps=20, warmup=2),
-                "bytes": moved, "ops": ops,
-                "bound_ms": max(b_mem, b_ops), "bound_by": "bytes" if b_mem >= b_ops else "operations",
-                "library_ms": None,
-                "shapes": {"B": Bk, "S": Sx, "n": n, "P": P, "L": L, "O": O, "T": T},
-            })
-            emit({"phase": "kernel_time", **{k: row[k] for k in
-                  ("name", "ms", "plain_ms", "bytes", "bound_ms", "bound_by", "shapes")}})
-        del planner, prob, hp, c, dc, c_pool, centers, dcenters, unique, got, ref
+            check_and_time(hp, dtype, tol, kern, args, jac, uniq, row_name or kern.__name__,
+                           timed=dtype == torch.float32)
+        # more starts than one launch takes: chunks of 8, one counted launch each
+        c_many, dc_many = kernel_layout(*prob.links.slice_with_jac_multi(
+            torch.as_tensor(K_many_np, dtype=dtype, device=dev))[::2])
+        many = (hp.A, hp.dpos, hp.dneg, c_many, dc_many)
+        kernels.reset_launch_counts()
+        kernels.fused_collision_value_jac_multi(*many)
+        assert kernels.launch_counts()["fused_collision_value_jac_multi"] == 2
+        check_and_time(hp, dtype, tol, kernels.fused_collision_value_jac_multi, many, True,
+                       kernels.tie_mask(hp.A, hp.dpos, hp.dneg, c_many, tol=1e-5), many_name,
+                       timed=dtype == torch.float32)
+        del many, c_many, dc_many
+        del planner, prob, hp, c, dc, c_pool, centers, dcenters, unique
         torch.cuda.empty_cache()
+    # the 40-obstacle bank (seed 7: culled and compacted to bucket 16) through the main kernel
+    probs40 = problem_set(cfg, B, n_obs=40, seed=7, device=dev)
+    planner = ArmourPlanner(spec, cfg, dtype=torch.float32, device=dev)
+    prob = planner.build_probs(probs40.q0, probs40.qd0, probs40.qdd0, probs40.zonos, probs40.masks)
+    hp = prob.hp
+    c, dc = kernel_layout(*prob.links.slice_with_jac_multi(
+        torch.as_tensor(K_np, dtype=torch.float32, device=dev))[::2])
+    check_and_time(hp, torch.float32, 2e-6, kernels.fused_collision_value_jac_multi,
+                   (hp.A, hp.dpos, hp.dneg, c, dc), True,
+                   kernels.tie_mask(hp.A, hp.dpos, hp.dneg, c, tol=1e-5), wide_name, timed=True)
+    del planner, prob, hp, c, dc
+    torch.cuda.empty_cache()
+
+    # small random banks: a short time axis (T=32, staged like the main shapes)
+    # and a slab whose rows are not 16-byte aligned (O*T = 99: the direct path
+    # inside the kernel), the second with 9 starts (two launches)
+    small = {}
+    for label, (Bs, Ss, L, O, T) in (("staged_T32", (4, 4, 7, 8, 32)), ("direct_O3_T33", (4, 9, 7, 3, 33))):
+        gen = torch.Generator(device=dev).manual_seed(11)
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+
+        A = randn(Bs, 36, 3, L, O, T)
+        A = (A / A.norm(dim=2, keepdim=True)).to(torch.bfloat16)
+        hp = BufferedHyperplanes(A, randn(Bs, 36, L, O, T), randn(Bs, 36, L, O, T),
+                                 torch.ones((Bs, O), dtype=torch.bool, device=dev))
+        c, dc = randn(Bs, Ss, 3, L, T), randn(Bs, Ss, n, 3, L, T)
+        uniq = kernels.tie_mask(hp.A, hp.dpos, hp.dneg, c, tol=1e-5)
+        check_and_time(hp, torch.float32, 2e-6, kernels.fused_collision_value_jac_multi,
+                       (hp.A, hp.dpos, hp.dneg, c, dc), True, uniq, f"value_jac_multi[{label}]",
+                       timed=False, table=small)
+        check_and_time(hp, torch.float32, 2e-6, kernels.fused_collision_values_multi,
+                       (hp.A, hp.dpos, hp.dneg, c), False, uniq, f"values_multi[{label}]",
+                       timed=False, table=small)
+    del hp, A, c, dc, uniq
+
     rows["fused_collision_value_jac_multi"]["replaces"] = "armour_tpu/collision/pallas_kernel.py:166"
+    rows[many_name]["replaces"] = "armour_tpu/collision/pallas_kernel.py:166"
+    rows[wide_name]["replaces"] = "armour_tpu/collision/pallas_kernel.py:166"
     rows["fused_collision_values_multi"]["replaces"] = "armour_tpu/collision/pallas_kernel.py:225"
     rows[pool_name]["replaces"] = "armour_tpu/collision/pallas_kernel.py:225"
     rows["fused_collision_value_jac"]["replaces"] = "armour_tpu/collision/pallas_kernel.py:85"
@@ -288,8 +359,8 @@ def main() -> int:
         r["launches"] = counts8[r["wrapper"]]
     # one timed repetition here and five latency runs below: the modes and
     # the closed loop further down take the time these repetitions gave up
-    probs40 = problem_set(cfg, B, n_obs=40, seed=7, device=dev)
-    run_point(probs40, "40obs", reps=1)
+    _, _, counts40 = run_point(probs40, "40obs", reps=1)
+    rows[wide_name]["launches"] = counts40[main_name]
 
     q0_0 = probs8.q0[0]
     obs1 = ObstacleSet(probs8.zonos[0], probs8.masks[0])
@@ -363,6 +434,15 @@ def main() -> int:
     args8 = (probs8.q0, probs8.qd0, probs8.qdd0, probs8.q_des, probs8.zonos, probs8.masks)
     _, _, out = run_mode("orig", ArmourPlanner(spec, cfg, dtype=torch.float32, device=dev,
                                                traj_type="orig"), args8, {main_name: passes})
+    emit(out)
+
+    # more starts than one launch of the main kernel takes (12: chunks of 8
+    # and 4) through the same entry point: two launches per pass
+    _, _, out = run_mode(f"{S_many}starts",
+                         ArmourPlanner(spec, dataclasses.replace(cfg, nlp_num_starts=S_many),
+                                       dtype=torch.float32, device=dev), args8, {main_name: 2 * passes})
+    assert out["feasible_fraction"] > 0.0, out
+    rows[many_name]["launches"] = out["launches_per_plan_batch"][main_name]
     emit(out)
 
     tau = 1e-3
@@ -509,7 +589,7 @@ def main() -> int:
 
     # ---- tail ------------------------------------------------------------
     order = ("fused_collision_value_jac_multi", "fused_collision_values_multi",
-             "fused_collision_value_jac", pool_name)
+             "fused_collision_value_jac", pool_name, many_name, wide_name)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     table = []
@@ -517,7 +597,7 @@ def main() -> int:
         r = dict(rows[name], max_abs_err=rows[name]["max_abs_err_float32"])
         table.append({k: r[k] for k in keys})
     with open(os.path.join(out_dir, "chip_smoke_kernels.json"), "w") as f:
-        json.dump({"nvidia_smi": smi, "rows": rows}, f, indent=1)
+        json.dump({"nvidia_smi": smi, "rows": rows, "small_banks": small, "ptxas": ptxas}, f, indent=1)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": table})
     print(smi, flush=True)

@@ -7,6 +7,11 @@ the production float32 with bf16 normals.  The JAX side runs its portable
 ``impl="xla"`` pipeline, never the Pallas kernels.  On CPU tensors the
 port's kernel wrappers run their plain versions.
 
+The multi-start entry points are also held to JAX at 10 starts, more than
+one launch of the CUDA value + Jacobian kernel takes (the plain version is
+what the card tests hold the chunked launches to), and a planner with
+``nlp_num_starts=10`` plans like the JAX planner with the same starts.
+
 Tolerances: float64 values at atol 1e-12; float32 at atol 2e-6 (the
 Pallas tests' own); Jacobians on the slots whose winning hyperplane is
 unique (top-2 gap over the 2P pieces > 1e-5, `test_pallas.py::_tie_mask`),
@@ -31,6 +36,9 @@ from armour_tpu.planner.armour import ArmourPlanner as JaxPlanner
 from armour_tpu.robots.kinova import kinova_gen3_spec as jax_kinova_gen3_spec
 from armour_tpu_torch import convert
 from armour_tpu_torch.collision import kernels
+from armour_tpu_torch.config import PlannerConfig
+from armour_tpu_torch.planner.armour import ArmourPlanner
+from armour_tpu_torch.robots.kinova import kinova_gen3_spec
 from armour_tpu_torch.collision.zonotope import (
     ObstacleSet,
     buffer_obstacles,
@@ -191,3 +199,57 @@ def test_plain_kernels_skip_nan_pieces():
     np.testing.assert_array_equal(J[:, 1, 1].numpy(), 0.0)
     assert not bool(kernels.tie_mask(A, dpos, dneg, c)[0, 0, 0, 1, 1])
     assert kernels.launch_counts() == {k.__name__: 0 for k in kernels.KERNELS}
+
+
+@pytest.mark.parametrize("dtype", [jnp.float64, jnp.float32])
+def test_plain_kernels_match_jax_xla_ten_starts(rng, dtype):
+    """S = 10 (the CUDA value + Jacobian kernel takes 8 per launch and the
+    wrapper chunks; the plain version takes any S at once): values and
+    tie-masked Jacobians of every start lane against the JAX pipeline."""
+    prob = _build_problem(rng, dtype)
+    links, hp = _port(prob, dtype)
+    S = 10
+    K = rng.uniform(-0.9, 0.9, (S, 7))
+    centers, _, dcenters = prob.links.slice_with_jac_multi(jnp.asarray(K, dtype))
+    g_j, J_j = jax_cj_multi(prob.hp, centers, dcenters, impl="xla")
+    gv_j = jax_values_multi(prob.hp, centers, impl="xla")
+    c_t, _, dc_t = links.slice_with_jac_multi(torch.as_tensor(K, dtype=TORCH_DTYPE[dtype])[None])
+    kernels.reset_launch_counts()
+    g_t, J_t = collision_constraints_with_jac_multi(hp, c_t, dc_t)
+    gv_t = collision_values_multi(hp, c_t)
+    assert kernels.launch_counts() == {k.__name__: 0 for k in kernels.KERNELS}
+    assert g_t.shape[:2] == (1, S) and J_t.shape[:3] == (1, S, 7)
+    atol = ATOL[dtype]
+    np.testing.assert_allclose(np.asarray(g_j), g_t[0].permute(0, 3, 1, 2).numpy(), atol=atol)
+    np.testing.assert_allclose(np.asarray(gv_j), gv_t[0].permute(0, 3, 1, 2).numpy(), atol=atol)
+    unique = np.stack([np.asarray(_tie_mask(prob.hp, centers[s])) for s in range(S)])[..., None]
+    np.testing.assert_allclose(np.asarray(J_j) * unique,
+                               J_t[0].permute(0, 4, 2, 3, 1).numpy() * unique, atol=atol)
+    # the lanes do not depend on how the starts are grouped
+    g_a, J_a = collision_constraints_with_jac_multi(hp, c_t[:, :8], dc_t[:, :8])
+    g_b, J_b = collision_constraints_with_jac_multi(hp, c_t[:, 8:], dc_t[:, 8:])
+    assert torch.equal(torch.cat([g_a, g_b], 1), g_t) and torch.equal(torch.cat([J_a, J_b], 1), J_t)
+
+
+def test_plan_with_ten_starts_matches_jax():
+    """``nlp_num_starts=10``: the port plans on the CPU like the JAX planner
+    with the same random starts (T=16, 4 obstacle slots, float64): the same
+    verdict, k at atol 1e-6."""
+    kw = dict(num_time_steps=16, max_obstacles=4, nlp_num_starts=10,
+              nlp_outer_iters=8, nlp_inner_iters=8)
+    jp = JaxPlanner(jax_kinova_gen3_spec(), JaxPlannerConfig(**kw))
+    tp = ArmourPlanner(kinova_gen3_spec(), PlannerConfig(**kw), dtype=torch.float64, device="cpu")
+    q0 = np.array([0.6543, -0.0876, -0.4837, -1.2278, -1.5735, -1.0720, 0.0])
+    qd0 = np.random.default_rng(0).uniform(-0.3, 0.3, 7)
+    centers, sides = [[0.4, 0.2, 0.3], [0.1, -0.4, 0.5]], [[0.1, 0.1, 0.1], [0.2, 0.1, 0.15]]
+    q_des = q0 + 0.8 * jp.cfg.k_range
+    key = jax.random.PRNGKey(0)
+    res_j = jp.plan(q0, qd0, np.zeros(7), q_des,
+                    JaxObstacleSet.from_boxes(np.array(centers), np.array(sides), 4), key)
+    # the random starts the JAX solve draws from ``key``
+    k_rand = np.asarray(jax.random.uniform(key, (kw["nlp_num_starts"] - 2, 7), jnp.float64,
+                                           minval=-0.6, maxval=0.6))
+    res_t = tp.plan(q0, qd0, np.zeros(7), q_des, ObstacleSet.from_boxes(centers, sides, 4),
+                    k_rand=k_rand)
+    assert bool(res_j.feasible) and bool(res_t.feasible)
+    np.testing.assert_allclose(np.asarray(res_j.k), res_t.k.numpy(), rtol=0, atol=1e-6)

@@ -6,9 +6,12 @@ test skips).  This file imports no JAX, so it runs on a machine without it:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
 
 Random banks cover every (A, offsets) type pair the kernels take, the
-obstacle buckets 8, 16 and 40, time axes that are not a multiple of the
-block, 1 to 8 starts (10, 16 and 20 for the values-only kernel, which takes
-16 in one launch and splits more into chunks), and banks with NaN offsets (a pair with a NaN never
+obstacle buckets 8, 16 and 40, time axes of 1, 5, 32, 127 and others that
+are no multiple of the tile, slabs whose rows are not 16-byte aligned (the
+kernel's direct path instead of its staged one), pair counts other than 36
+(fewer than the ring has stages, and no multiple of it), 1 to 20 starts
+(every instantiated bound, and the chunks beyond: 8 per launch with the
+Jacobian, 16 without), and banks with NaN offsets (a pair with a NaN never
 wins; a slot with none usable keeps g = 1e30, J = 0).  Tolerances: float32 offsets atol 2e-6 and
 float64 atol 1e-12 on values of order 1 (the kernel fuses multiply-adds
 where the plain version rounds each product); Jacobians on the slots
@@ -27,17 +30,23 @@ pytestmark = pytest.mark.cuda
 TYPES = [(torch.bfloat16, torch.float32), (torch.float32, torch.float32),
          (torch.bfloat16, torch.float64), (torch.float32, torch.float64),
          (torch.float64, torch.float64)]
-SHAPES = [  # B, S, n, L, O, T
+SHAPES = [  # B, S, n, L, O, T and, where it is not 36, P
     (3, 4, 7, 7, 40, 128),
     (2, 1, 7, 7, 8, 37),
     (1, 8, 3, 2, 3, 200),
     (2, 5, 7, 7, 16, 129),
-]
-VALUE_ONLY_SHAPES = [  # more starts than the Jacobian kernels take: values only
     (2, 10, 7, 7, 8, 128),
     (1, 16, 7, 7, 16, 37),
     (1, 20, 7, 3, 8, 130),
+    (2, 9, 7, 7, 8, 32),         # 8 + 1 starts with the Jacobian
+    (1, 12, 7, 7, 8, 127),       # 8 + 4; an odd T on aligned rows
+    (2, 4, 7, 7, 3, 5),          # O*T = 15: rows not aligned, the direct path
+    (2, 4, 7, 7, 8, 1),
+    (1, 4, 7, 7, 16, 64),
+    (2, 4, 7, 7, 8, 128, 5),     # P = 5: the generic pair loop
+    (1, 10, 2, 5, 3, 33, 3),     # P = 3, fewer pairs than stages; direct path
 ]
+JAC_STARTS, VALUE_STARTS = 8, 16   # starts per launch
 ATOL = {torch.float32: 2e-6, torch.float64: 1e-12}
 
 
@@ -50,11 +59,12 @@ def card():
 
 
 def _bank(shape, a_dtype, o_dtype, seed, device):
-    B, S, n, L, O, T = shape
+    B, S, n, L, O, T = shape[:6]
+    P = shape[6] if len(shape) > 6 else 36
     rng = np.random.default_rng(seed)
-    A = rng.normal(size=(B, 36, 3, L, O, T))
+    A = rng.normal(size=(B, P, 3, L, O, T))
     A /= np.linalg.norm(A, axis=2, keepdims=True)
-    arrays = (A, rng.normal(size=(B, 36, L, O, T)), rng.normal(size=(B, 36, L, O, T)),
+    arrays = (A, rng.normal(size=(B, P, L, O, T)), rng.normal(size=(B, P, L, O, T)),
               rng.normal(size=(B, S, 3, L, T)), rng.normal(size=(B, S, n, 3, L, T)))
     dtypes = (a_dtype, o_dtype, o_dtype, o_dtype, o_dtype)
     return tuple(torch.as_tensor(x, dtype=torch.float64).to(dt).to(device)
@@ -70,28 +80,14 @@ def _poison(dpos, dneg, seed):
 
 
 @pytest.mark.parametrize("nan", [False, True], ids=["finite", "nan"])
-@pytest.mark.parametrize("shape", SHAPES + VALUE_ONLY_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
 @pytest.mark.parametrize("types", TYPES, ids=lambda t: f"{str(t[0])[6:]}-{str(t[1])[6:]}")
 def test_kernels_match_plain(card, shape, types, nan):
     A, dpos, dneg, c, dc = _bank(shape, *types, seed=sum(shape), device=card)
     if nan:
         _poison(dpos, dneg, seed=sum(shape))
     atol = ATOL[types[1]]
-    if shape in VALUE_ONLY_SHAPES:
-        S = shape[1]
-        kernels.reset_launch_counts()
-        gv = kernels.fused_collision_values_multi(A, dpos, dneg, c)
-        torch.cuda.synchronize()
-        assert (gv - kernels.values_multi_plain(A, dpos, dneg, c)).abs().max().item() <= atol
-        assert bool(torch.isfinite(gv).all())
-        # each start's lane equals the single-start launch of the Jacobian kernel
-        g1, _ = kernels.fused_collision_value_jac(A, dpos, dneg, c[:, S - 1].contiguous(),
-                                                  dc[:, S - 1].contiguous())
-        assert torch.equal(gv[:, S - 1], g1)
-        assert kernels.launch_counts()["fused_collision_values_multi"] == -(-S // 16)
-        with pytest.raises(ValueError, match="at most 8 starts"):
-            kernels.fused_collision_value_jac_multi(A, dpos, dneg, c, dc)
-        return
+    S = shape[1]
     uniq = kernels.tie_mask(A, dpos, dneg, c, tol=1e-5)
     kernels.reset_launch_counts()
 
@@ -113,7 +109,14 @@ def test_kernels_match_plain(card, shape, types, nan):
     assert (g1 - g1p).abs().max().item() <= atol
     assert ((J1 - J1p).abs() * uniq[:, 0, None]).max().item() <= atol
     assert torch.equal(g1, g[:, 0]) and torch.equal(J1, J[:, 0])
-    assert kernels.launch_counts() == {k.__name__: 1 for k in kernels.KERNELS}
+    # the last start's lane (in the last chunk) equals its own single-start launch
+    g_last, J_last = kernels.fused_collision_value_jac(A, dpos, dneg, c[:, S - 1].contiguous(),
+                                                       dc[:, S - 1].contiguous())
+    assert torch.equal(g_last, g[:, S - 1]) and torch.equal(J_last, J[:, S - 1])
+    assert kernels.launch_counts() == {
+        "fused_collision_value_jac_multi": -(-S // JAC_STARTS),
+        "fused_collision_values_multi": -(-S // VALUE_STARTS),
+        "fused_collision_value_jac": 2}
 
 
 def test_first_maximum_wins_and_nan_never_wins(card):
@@ -151,9 +154,8 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(card):
     A, dpos, dneg, c, dc = _bank((1, 2, 7, 7, 8, 16), torch.bfloat16, torch.float32, 1, card)
     with pytest.raises(ValueError, match="contiguous"):
         kernels.fused_collision_values_multi(A, dpos, dneg, c.transpose(-1, -2).contiguous().transpose(-1, -2))
-    with pytest.raises(ValueError, match="at most 8 starts"):
-        kernels.fused_collision_value_jac_multi(A, dpos, dneg, c[:, :1].expand(1, 9, 3, 7, 16).contiguous(),
-                                                dc[:, :1].expand(1, 9, 7, 3, 7, 16).contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.fused_collision_value_jac_multi(A, dpos, dneg, c[:, :1].expand(1, 9, 3, 7, 16), dc[:, :1].expand(1, 9, 7, 3, 7, 16))
     with pytest.raises(ValueError, match="all must be on the CPU"):
         kernels.fused_collision_values_multi(A, dpos.cpu(), dneg, c)
     with pytest.raises(TypeError):
