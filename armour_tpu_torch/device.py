@@ -1,7 +1,9 @@
-"""Device resolution shared by every entry point of the port."""
+"""Device resolution shared by every entry point of the port, and the way
+back to the host."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -16,3 +18,11 @@ def resolve_device(device=None) -> torch.device:
             "to run on the CPU"
         )
     return dev
+
+
+def to_numpy(x) -> np.ndarray:
+    """A host numpy array of ``x``: a tensor on any device, or array-like
+    (``np.asarray`` alone raises on a CUDA tensor)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)

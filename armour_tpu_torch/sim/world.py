@@ -1,17 +1,54 @@
-"""Ground-truth collision screen of arm configurations against box obstacles.
+"""Worlds, goal checks, and the ground-truth collision screen.
 
-Port of `armour_tpu/sim/world.py:56-111` (`obb_aabb_overlap`,
-`arm_collision_check`), the part the problem generator's start-volume
-screen needs.  Worlds, goals and scenarios wait for the sim slice.
+Port of `armour_tpu/sim/world.py`: the planning scenario (`World`), the
+configuration- and workspace-goal tests, the OBB-vs-AABB separating-axis
+test of arm configurations against box obstacles, and random scenario
+generation.  The link volumes checked are exactly the link bounding boxes
+the planner certifies, so the screen is conservative with respect to the
+exact mesh check (`collision/mesh_oracle.py`): screen-clean implies
+mesh-clean.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from armour_tpu_torch.collision.zonotope import ObstacleSet
+from armour_tpu_torch.device import resolve_device
 from armour_tpu_torch.dynamics.rnea import forward_kinematics
+from armour_tpu_torch.planner.armour import wrap_to_pi
 from armour_tpu_torch.robots.spec import RobotSpec
+
+
+class World(NamedTuple):
+    """A planning scenario: start/goal configurations + obstacle bank."""
+
+    start: torch.Tensor         # (nf,)
+    goal: torch.Tensor          # (nf,)
+    obstacles: ObstacleSet
+    goal_type: str = "configuration"
+
+
+def goal_check(spec: RobotSpec, q, goal, goal_radius: float):
+    """Configuration-space goal test (`kinova_world_static.m` goal_check):
+    every joint within goal_radius, with angdiff on continuous joints."""
+    d = q - goal
+    cont = torch.as_tensor(spec.continuous_joints, device=d.device)
+    d = torch.where(cont, wrap_to_pi(d), d)
+    return torch.all(d.abs() <= goal_radius, dim=-1)
+
+
+def goal_check_ee(spec: RobotSpec, q, goal_xyz, goal_radius: float):
+    """Workspace goal test ('end_effector_location' goal type,
+    `kinova_world_static.m:53-110`): the end effector (the flange offset
+    ``spec.trans[n_joints]`` past the last joint) within goal_radius."""
+    Rw, pw = forward_kinematics(spec, q)
+    flange = torch.as_tensor(spec.trans[spec.n_joints], dtype=q.dtype, device=q.device)
+    ee = pw[..., -1, :] + torch.einsum("...ij,j->...i", Rw[..., -1, :, :], flange)
+    return torch.linalg.vector_norm(ee - goal_xyz, dim=-1) <= goal_radius
 
 
 def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -49,9 +86,9 @@ def obb_aabb_overlap(obb_c, obb_R, obb_half, aabb_c, aabb_half):
 def arm_collision_check(spec: RobotSpec, q: torch.Tensor, obstacles: ObstacleSet) -> torch.Tensor:
     """True iff ANY link box intersects ANY live obstacle.
 
-    q (..., nf); obstacles.zonos (..., O, 4, 3) and mask (..., O) with the
-    same leading dims as q -> (...,) bool.  Obstacles are treated as AABBs
-    (box_obstacle_zonotope is axis-aligned).
+    q (..., nf); obstacles.zonos (..., O, 4, 3) and mask (..., O) whose
+    leading dims broadcast against those of q -> (...,) bool.  Obstacles
+    are treated as AABBs (box_obstacle_zonotope is axis-aligned).
     """
     Rw, pw = forward_kinematics(spec, q)          # (..., L, 3, 3), (..., L, 3)
     centers_local = torch.as_tensor(spec.link_zono_center, dtype=q.dtype, device=q.device)
@@ -70,3 +107,45 @@ def arm_collision_check(spec: RobotSpec, q: torch.Tensor, obstacles: ObstacleSet
     )                                                                 # (..., L, O)
     hit = hit & obstacles.mask[..., None, :]
     return hit.flatten(-2).any(-1)
+
+
+def random_world(
+    spec: RobotSpec,
+    n_obstacles: int,
+    capacity: int,
+    generator: torch.Generator,
+    obstacle_size_range=(0.01, 0.5),
+    workspace_radius: float = 0.9,
+    dtype: torch.dtype = torch.float64,
+    device=None,
+) -> World:
+    """Random scenario generation in the style of `arm_world_static.m`
+    (random start/goal + random boxes; the caller should rejection-sample
+    against `arm_collision_check` at start/goal like the reference's
+    create_random_obstacles path).  Draws come from ``generator`` (the JAX
+    package draws from a ``jax.random`` key, so the two worlds differ for
+    the same seed); the world lands on ``device``."""
+    dev = resolve_device(device)
+    nf = spec.n_factors
+
+    def uniform(*shape):
+        u = torch.rand(shape, generator=generator, dtype=dtype, device=generator.device)
+        return u.to(dev)
+
+    lb = torch.as_tensor(np.where(spec.continuous_joints, -np.pi, spec.pos_limits_lb + 0.05),
+                         dtype=dtype, device=dev)
+    ub = torch.as_tensor(np.where(spec.continuous_joints, np.pi, spec.pos_limits_ub - 0.05),
+                         dtype=dtype, device=dev)
+    start = uniform(nf) * (ub - lb) + lb
+    goal = uniform(nf) * (ub - lb) + lb
+    centers = uniform(n_obstacles, 3) * (2 * workspace_radius) - workspace_radius
+    # keep obstacles above the table plane
+    centers[:, 2] = centers[:, 2].abs() + 0.1
+    lo, hi = obstacle_size_range
+    sides = uniform(n_obstacles, 3) * (hi - lo) + lo
+    zonos = torch.zeros((capacity, 4, 3), dtype=dtype, device=dev)
+    zonos[:n_obstacles, 0] = centers
+    for i in range(3):
+        zonos[:n_obstacles, 1 + i, i] = sides[:, i] * 0.5
+    mask = torch.arange(capacity, device=dev) < n_obstacles
+    return World(start=start, goal=goal, obstacles=ObstacleSet(zonos, mask))

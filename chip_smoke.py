@@ -24,20 +24,33 @@ Phases (each prints one JSON line; any failure exits non-zero):
               12 starts, for smooth collision (tau = 1e-3) and with grasp
               constraints
   6. track    one closed-loop rollout of the 128 plans of phase 4: robust
-              controller, RK4 plant at 5e-4 s, 1,000 steps, all worlds at once
+              controller, RK4 plant at 5e-4 s, 200 steps, all worlds at once
   7. parity   plan() on the card against plan() on the CPU (4 worlds, then
               one world per mode) and a 20-step rollout, T=32, f64
+  8. battery  run_batch_stepped over the 100 worlds of assets/worlds at
+              B=100, T=128, f32, 2 iterations, mesh oracle: one JSON line per
+              iteration (wall split, buckets, launches = 65, mesh hits), the
+              summary; fails on any safety violation.  The main kernel is held
+              against its plain version on the battery's first bank
+  9. hard     the doorway scene with up-front RRT-connect guidance, 2
+              iterations
+ 10. episode  EpisodeRunner.run_batch on 4 worlds and run_recorded_episode on
+              one (save/load round trip), 1 iteration each
+ 11. parity   run_batch_stepped on the card against the CPU: 2 worlds, T=32,
+              f64, the same injected draws; every summary field equal
 The last lines are the kernel table as JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}.  Longer output goes to chiprun_out/.
 """
 
 import dataclasses
+import glob
 import json
 import os
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -119,6 +132,207 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+SAFETY = ("collision", "torque_violation", "joint_limit_violation", "ultimate_bound_violation")
+SUMMARY_FIELDS = ("goal_reached", *SAFETY, "stopped", "iterations", "n_feasible_plans")
+
+
+def episode_phases(torch, dev, check_and_time, rows, out_dir, n_worlds=100, T=128, sim_kw=None):
+    """Phases 8-11, the receding-horizon episode paths: the 100-world battery,
+    the doorway scene, the episode program and the recorded episode, and the
+    battery driver on the card against the CPU.  Every phase resets the
+    launch counts just before it and reads them just after.  ``n_worlds``,
+    ``T`` and ``sim_kw`` (SimConfig overrides) exist to rehearse the phases
+    at a small size on the CPU."""
+    from armour_tpu_torch.collision import kernels
+    from armour_tpu_torch.collision.zonotope import kernel_layout
+    from armour_tpu_torch.config import PlannerConfig, SimConfig
+    from armour_tpu_torch.planner.armour import obstacle_bucket
+    from armour_tpu_torch.robots.kinova import kinova_gen3_spec
+    from armour_tpu_torch.sim.harness import Draws, EpisodeRunner, TrueParams, run_batch_stepped
+    from armour_tpu_torch.sim.recording import load_recording, run_recorded_episode
+    from armour_tpu_torch.sim.scenarios import hard_scenario, load_world_csv, stack_worlds
+    from armour_tpu_torch.utils.summary import summarize_episodes
+
+    spec = kinova_gen3_spec()
+    cfg = PlannerConfig(num_time_steps=T)
+    sim_kw = sim_kw or {}
+    f32, f64 = torch.float32, torch.float64
+    main_name = "fused_collision_value_jac_multi"
+    passes = cfg.nlp_outer_iters * cfg.nlp_inner_iters + 1
+    zero = {k.__name__: 0 for k in kernels.KERNELS}
+
+    def sync():
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+
+    def safe(s, label):
+        bad = {k: int(getattr(s, k).sum()) for k in SAFETY}
+        assert not any(bad.values()), f"{label}: safety violations {bad}"
+        return bad
+
+    def overshoots(s):
+        return {k: float(getattr(s, k).max()) for k in ("jl_overshoot", "ub_overshoot",
+                                                        "torque_overshoot")}
+
+    # ---- 8. battery: the 100-world suite, as run_100_worlds loads it ----
+    root = os.path.dirname(os.path.abspath(__file__))
+    files = sorted(glob.glob(os.path.join(root, "assets", "worlds", "*.csv")))[:n_worlds]
+    assert len(files) == n_worlds, f"{len(files)} world files"
+    worlds = [load_world_csv(f, cfg.max_obstacles, f32, device=dev) for f in files]
+    starts, goals, zonos, masks = stack_worlds(worlds, f32)
+    B = len(worlds)
+    runner = EpisodeRunner(spec, cfg, SimConfig(max_iterations=2, **sim_kw), f32, device=dev)
+    planner = runner.planner
+    rest = torch.zeros_like(starts)
+    # the bank of the first replan (the arm at rest at its start), the whole
+    # batch and by obstacle count
+    prob = planner.build_probs(starts, rest, rest, zonos, masks)
+    n_live = masks.sum(1).cpu()
+    by_count = {}
+    for n in sorted(set(n_live.tolist())):
+        sel = (n_live == n).to(starts.device)
+        p_n = planner.build_probs(starts[sel], rest[sel], rest[sel], zonos[sel], masks[sel])
+        by_count[int(n)] = {"worlds": int(sel.sum()), "bucket": obstacle_bucket(masks[sel]),
+                            "bucket_culled": int(p_n.hp.dpos.shape[-2])}
+    del p_n
+    gen = torch.Generator(device=dev).manual_seed(0)
+    trace = []
+    sync()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    s = run_batch_stepped(runner, starts, goals, zonos, masks, gen, collision_oracle="mesh",
+                          hlp="straight", trace=trace)
+    sync()
+    battery_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    for tr in trace:
+        emit({"phase": "battery_iteration", **tr})
+        assert tr["launches"] == dict(zero, **{main_name: passes}), tr["launches"]
+    assert counts == dict(zero, **{main_name: passes * len(trace)}), counts
+    summary = summarize_episodes(s)
+    with open(os.path.join(out_dir, "battery_trace.json"), "w") as f:
+        json.dump({"trace": trace, "summary": summary,
+                   "worlds": [os.path.basename(x) for x in files]}, f, indent=1)
+    emit({"phase": "battery", "worlds": B, "T": T, "dtype": "float32", "hlp": "straight",
+          "collision_oracle": "mesh", "iterations": len(trace), "seconds": battery_s,
+          "seconds_per_iteration": battery_s / max(len(trace), 1), "launches": counts,
+          "bucket_first_replan": {"bucket": obstacle_bucket(masks),
+                                  "bucket_culled": int(prob.hp.dpos.shape[-2]),
+                                  "by_obstacle_count": by_count},
+          "summary": summary, "max_overshoot": overshoots(s)})
+    safe(s, "battery")
+    # the main kernel on the battery's first bank, against its plain version
+    hp = prob.hp
+    K = torch.as_tensor(np.random.default_rng(6).uniform(-0.9, 0.9, (B, cfg.nlp_num_starts, 7)),
+                        dtype=f32, device=dev)
+    c, dc = kernel_layout(*prob.links.slice_with_jac_multi(K)[::2])
+    battery_row = "fused_collision_value_jac_multi[battery]"
+    check_and_time(hp, f32, 2e-6, kernels.fused_collision_value_jac_multi,
+                   (hp.A, hp.dpos, hp.dneg, c, dc), True,
+                   kernels.tie_mask(hp.A, hp.dpos, hp.dneg, c, tol=1e-5), battery_row, timed=True)
+    rows[battery_row]["replaces"] = "armour_tpu/collision/pallas_kernel.py:166"
+    rows[battery_row]["launches"] = counts[main_name]
+    del prob, hp, K, c, dc
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+
+    # ---- 9. hard: the doorway with up-front configuration-space RRT-connect ----
+    door = hard_scenario(2, cfg.max_obstacles, f32, device=dev)
+    hrunner = EpisodeRunner(spec, cfg, SimConfig(max_iterations=2, goal_radius=0.05, **sim_kw),
+                            f32, device=dev)
+    trace_h = []
+    sync()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    s_h = run_batch_stepped(hrunner, *stack_worlds([door], f32),
+                            torch.Generator(device=dev).manual_seed(0),
+                            collision_oracle="mesh", hlp="rrt_connect", trace=trace_h)
+    sync()
+    hard_s = time.perf_counter() - t0
+    counts_h = kernels.launch_counts()
+    assert counts_h == dict(zero, **{main_name: passes * len(trace_h)}), counts_h
+    paths = trace_h[-1]["guidance_paths"] if trace_h else {}
+    emit({"phase": "hard", "scenario": 2, "name": "doorway", "hlp": "rrt_connect",
+          "iterations": len(trace_h), "seconds": hard_s,
+          "up_front_host_s": hard_s - sum(tr["wall_s"] for tr in trace_h),
+          "iteration_s": [tr["wall_s"] for tr in trace_h],
+          "guidance_path": paths.get("0"),
+          "waypoints_consumed": paths["0"]["index"] - 1 if "0" in paths else None,
+          "launches": counts_h,
+          "flags": {k: bool(getattr(s_h, k)[0]) for k in SUMMARY_FIELDS[:6]},
+          "n_feasible_plans": int(s_h.n_feasible_plans[0]), "max_overshoot": overshoots(s_h)})
+    safe(s_h, "hard")
+    assert "0" in paths, "hard: RRT-connect found no guidance path through the doorway"
+
+    # ---- 10. episode: the episode program and the recorded episode ----
+    erunner = EpisodeRunner(spec, cfg, SimConfig(max_iterations=1, **sim_kw), f32, device=dev)
+    sync()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    s_e = erunner.run_batch(starts[:4], goals[:4], zonos[:4], masks[:4],
+                            torch.Generator(device=dev).manual_seed(0))
+    sync()
+    scan_s = time.perf_counter() - t0
+    counts_e = kernels.launch_counts()
+    assert counts_e == dict(zero, **{main_name: passes}), counts_e
+    safe(s_e, "episode program")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rec = run_recorded_episode(spec, cfg, SimConfig(max_iterations=1, **sim_kw), worlds[0],
+                               torch.Generator(device=dev).manual_seed(0), f32,
+                               planner=erunner.planner)
+    sync()
+    rec_s = time.perf_counter() - t0
+    counts_r = kernels.launch_counts()
+    assert counts_r == dict(zero, **{main_name: passes}), counts_r
+    assert len(rec.records) == 1 and not rec.collision
+    path = os.path.join(out_dir, "episode_world0.npz")
+    rec.save(path)
+    z = load_recording(path)
+    r0 = rec.records[0]
+    assert np.array_equal(z["q"], r0.q) and np.array_equal(z["k"][0], r0.k, equal_nan=True)
+    assert z["q"].shape == r0.q.shape and np.isfinite(z["q"]).all()
+    emit({"phase": "episode", "run_batch": {"worlds": 4, "iterations": 1, "seconds": scan_s,
+                                             "launches": counts_e,
+                                             "n_feasible_plans": s_e.n_feasible_plans.tolist(),
+                                             "goal_reached": s_e.goal_reached.tolist()},
+          "recorded": {"world": os.path.basename(files[0]), "iterations": 1, "seconds": rec_s,
+                       "launches": counts_r, "feasible": bool(r0.feasible),
+                       "saved_arrays": len(z), "log_steps": int(z["q"].shape[0])}})
+
+    # ---- 11. the battery driver on the card against the CPU ----
+    cfg32 = PlannerConfig(num_time_steps=32)
+    sim2 = SimConfig(plant_dt=5e-3, max_iterations=2)
+    w2 = stack_worlds([load_world_csv(f, cfg32.max_obstacles, f64, device="cpu") for f in files[:2]],
+                      f64)
+    g = torch.Generator().manual_seed(9)
+    lo, hi = sim2.uncertain_mass_range
+    tp = TrueParams(*(torch.rand((2, 7), generator=g, dtype=f64) * (hi - lo) + lo for _ in "mi"))
+    draws = [(torch.rand((2, max(cfg32.nlp_num_starts - 2, 1), 7), generator=g, dtype=f64) * 1.2 - 0.6,
+              torch.randn((2, 32, 7), generator=g, dtype=f64)) for _ in range(sim2.max_iterations)]
+    out = {}
+    for d in (dev, "cpu"):
+        kernels.reset_launch_counts()
+        r = EpisodeRunner(spec, cfg32, sim2, f64, device=d)
+        out[d] = run_batch_stepped(r, *w2, true_params=tp,
+                                   draws=lambda i, d=d: Draws(*(x.to(d) for x in draws[i])),
+                                   collision_oracle="mesh")
+        if d == dev:
+            card_counts = kernels.launch_counts()
+    a, b = out[dev], out["cpu"]
+    for name in SUMMARY_FIELDS:
+        assert torch.equal(getattr(a, name).cpu(), getattr(b, name).cpu()), \
+            f"stepped: {name} card {getattr(a, name).tolist()} CPU {getattr(b, name).tolist()}"
+    over_diff = max(float((getattr(a, k) - getattr(b, k)).abs().max())
+                    for k in ("jl_overshoot", "ub_overshoot", "torque_overshoot"))
+    assert over_diff <= 1e-9, f"stepped: overshoots differ by {over_diff}"
+    emit({"phase": "card_vs_cpu", "path": "run_batch_stepped", "worlds": 2, "T": 32,
+          "dtype": "float64", "iterations": sim2.max_iterations, "fields_equal": True,
+          "max_abs_overshoot_diff": over_diff, "atol": 1e-9, "card_launches": card_counts,
+          "n_feasible_plans": a.n_feasible_plans.tolist()})
+    return battery_row
+
+
 def main() -> int:
     import torch
 
@@ -163,7 +377,12 @@ def main() -> int:
     assert not tf32["matmul"] and not tf32["cudnn"], "TF32 must be off"
 
     # ---- 2. build --------------------------------------------------------
-    info = kernels.build(verbose=True)
+    from armour_tpu_torch.collision import mesh_oracle
+
+    with ThreadPoolExecutor(2) as pool:    # nvcc and g++ at once
+        oracle_build = pool.submit(mesh_oracle.build)
+        info = kernels.build(verbose=True)
+        oracle_lib = oracle_build.result()
     with open(os.path.join(out_dir, "collision_bank_ptxas.txt"), "w") as f:
         f.write(info["log"])
     ptxas = kernels.ptxas_summary(info["log"])
@@ -171,7 +390,9 @@ def main() -> int:
     emit({"phase": "build", "seconds": round(info["seconds"], 3), "built": info["built"],
           "library": os.path.relpath(info["path"]), "instantiations": len(ptxas),
           "registers_f32_offsets": {r["kernel"]: r["registers"] for r in ptxas if ",f32," in r["kernel"]},
-          "max_registers": max((r["registers"] for r in ptxas), default=None), "spilling": spilling})
+          "max_registers": max((r["registers"] for r in ptxas), default=None), "spilling": spilling,
+          "mesh_oracle": os.path.relpath(oracle_lib),
+          "mesh_oracle_openmp": oracle_lib == mesh_oracle.library_path(mesh_oracle.VARIANTS[0])})
     assert not info["built"] or (ptxas and not spilling), f"ptxas reports spills: {spilling}"
 
     spec = kinova_gen3_spec()
@@ -326,7 +547,7 @@ def main() -> int:
     passes = cfg.nlp_outer_iters * cfg.nlp_inner_iters + 1
     main_name = "fused_collision_value_jac_multi"
 
-    def run_point(probs, label, reps=3):
+    def run_point(probs, label, reps=2):
         args = (probs.q0, probs.qd0, probs.qdd0, probs.q_des, probs.zonos, probs.masks)
         planner.plan_batch(*args)                               # warm-up
         torch.cuda.synchronize()
@@ -357,8 +578,9 @@ def main() -> int:
     res8, prob8, counts8 = run_point(probs8, "8obs")
     for r in rows.values():
         r["launches"] = counts8[r["wrapper"]]
-    # one timed repetition here and five latency runs below: the modes and
-    # the closed loop further down take the time these repetitions gave up
+    # one timed repetition here and three latency runs below: the modes,
+    # the closed loop and the episodes further down take the time these
+    # repetitions gave up
     _, _, counts40 = run_point(probs40, "40obs", reps=1)
     rows[wide_name]["launches"] = counts40[main_name]
 
@@ -367,7 +589,7 @@ def main() -> int:
     lat, _ = wall(torch, lambda: planner.plan(q0_0, np.zeros(7), np.zeros(7), q0_0 + 0.05, obs1), 1)
     lats = [wall(torch, lambda i=i: planner.plan(probs8.q0[i], np.zeros(7), np.zeros(7),
                                                  probs8.q0[i] + 0.05, obs1), 1)[0]
-            for i in range(5)]
+            for i in range(3)]
     emit({"phase": "latency_batch1", "median_ms": statistics.median(lats) * 1e3,
           "runs_ms": [x * 1e3 for x in lats]})
 
@@ -481,7 +703,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 6. plan and track: the closed loop on the 128 plans of phase 4 ---
-    sim = SimConfig()
+    # 200 RK4 steps (0.1 s of the move): the battery below runs the whole
+    # 1,000-step move, at B=100, and times it
+    sim = dataclasses.replace(SimConfig(), t_move=200 * SimConfig().plant_dt)
     n_steps = int(round(sim.t_move / sim.plant_dt))
     rng_true = np.random.default_rng(0)
     true = TrueParams(rng_true.uniform(*sim.uncertain_mass_range, (B, spec.n_joints)),
@@ -587,9 +811,14 @@ def main() -> int:
     emit({"phase": "card_vs_cpu", "path": "rollout", "worlds": 4, "steps": 20,
           "dtype": "float64", "max_abs_q_end_diff": end_diff, "atol": 1e-9})
 
+    # ---- 8-11. the receding-horizon episode paths --------------------------
+    del res8, prob8, probs40
+    torch.cuda.empty_cache()
+    battery_row = episode_phases(torch, dev, check_and_time, rows, out_dir)
+
     # ---- tail ------------------------------------------------------------
     order = ("fused_collision_value_jac_multi", "fused_collision_values_multi",
-             "fused_collision_value_jac", pool_name, many_name, wide_name)
+             "fused_collision_value_jac", pool_name, many_name, wide_name, battery_row)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     table = []

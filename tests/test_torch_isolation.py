@@ -31,6 +31,10 @@ from armour_tpu_torch.device import resolve_device
 from armour_tpu_torch.planner.armour import ArmourPlanner
 from armour_tpu_torch.problems import problem_set
 from armour_tpu_torch.robots.kinova import kinova_gen3_spec
+from armour_tpu_torch import run_hard_scenarios, run_worlds
+from armour_tpu_torch.collision.zonotope import ObstacleSet
+from armour_tpu_torch.planner import hlp
+from armour_tpu_torch.sim import harness, recording, scenarios, world
 from armour_tpu_torch.sim.agent import TrajParams, TrueParams, rollout, rollout_direct
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -116,6 +120,36 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch):
     assert convert.bank_from_numpy(*bank, device="cpu").A.device == torch.device("cpu")
     assert ArmourPlanner(kinova_gen3_spec(), cfg, device="cpu").device == torch.device("cpu")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_episode_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch, tmp_path):
+    """The harness, the recorded episode and the scenario loaders default to
+    the card too; the host-only parts (the CSV writer, the numpy planners)
+    take no device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec, cfg, sim = kinova_gen3_spec(), PlannerConfig(num_time_steps=8), SimConfig(max_iterations=1)
+    csv = tmp_path / "w.csv"
+    scenarios.save_world_csv(csv, np.zeros(7), np.ones(7), [[0.5, 0.5, 0.5]], [[0.1, 0.1, 0.1]])
+    calls = [
+        lambda: harness.EpisodeRunner(spec, cfg, sim),
+        lambda: world.random_world(spec, 2, 4, torch.Generator()),
+        lambda: scenarios.load_world_csv(csv, 4),
+        lambda: scenarios.hard_scenario(2),
+        lambda: scenarios.generate_random_world(spec, np.random.default_rng(0), 1, 4),
+        lambda: hlp.optimization_waypoint(spec, np.zeros(7), np.ones(7),
+                                          ObstacleSet.from_boxes([[5.0, 5.0, 5.0]], [[0.1] * 3], 4)),
+        lambda: run_worlds.main(["--max-worlds", "1", "--max-iterations", "1"]),
+        lambda: run_hard_scenarios.main(["--scenarios", "2", "--max-iterations", "1"]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    w = scenarios.load_world_csv(csv, 4, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        recording.run_recorded_episode(spec, cfg, sim, w)
+    runner = harness.EpisodeRunner(spec, cfg, sim, device="cpu")
+    assert runner.device == runner.planner.device == torch.device("cpu")
+    assert world.random_world(spec, 2, 4, torch.Generator(), device="cpu").start.device.type == "cpu"
 
 
 def test_tf32_is_off():
