@@ -3,8 +3,9 @@
 Port of `armour_tpu/planner/armour.py`: the production mode
 (``traj_type="bernstein"``, hard-max collision) and the optional modes
 ``traj_type="orig"`` (ARMTD comparison), smooth collision
-(``cfg.smooth_collision_tau > 0``) and grasp constraints; the
-self-intersection block is not ported.  The JAX package maps the build over worlds with
+(``cfg.smooth_collision_tau > 0``), grasp constraints and the
+self-intersection block of the legacy rotatotope planners
+(`planner/rotatotope.py`).  The JAX package maps the build over worlds with
 ``lax.map`` and vmaps the solve; here the world axis B is a leading
 dimension of every tensor, and a plan is one eager pass over the batch:
 
@@ -50,6 +51,12 @@ from armour_tpu_torch.jrs.bezier import (
 )
 from armour_tpu_torch.ops.pz import PackedPZ, pack_pzs
 from armour_tpu_torch.planner.nlp import jacobian_t, solve_box_alm_multi
+from armour_tpu_torch.planner.rotatotope import (
+    build_self_intersection,
+    self_intersection_pairs,
+    self_intersection_values_multi,
+    self_intersection_with_jac_multi,
+)
 from armour_tpu_torch.robots.spec import RobotSpec
 
 
@@ -80,6 +87,26 @@ class ProblemData(NamedTuple):
     Tqd0: torch.Tensor
     TTqdd0: torch.Tensor
     k_range: torch.Tensor        # (nf,), or (B, nf) where it depends on the world ('orig')
+    si_diff: PackedPZ | None = None     # link-pair differences (B, T, P, 3), None without SI
+    si_rad: torch.Tensor | None = None  # (B, T, P, 3) pair separation radii
+
+
+def gather_obstacles(x: torch.Tensor, group) -> torch.Tensor:
+    """All-gather a per-shard collision block (..., O_shard, T) over the
+    ranks of ``group`` and join the shards along the obstacle axis (-2),
+    in rank order: the unsharded block's layout (the JAX package gathers
+    onto a new leading axis instead, `armour.py:437-439`, so its rows come
+    in another order).  Counts its calls in ``gather_obstacles.calls``."""
+    import torch.distributed as dist
+
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    gather_obstacles.calls += 1
+    return torch.cat(parts, dim=-2)
+
+
+gather_obstacles.calls = 0
 
 
 def obstacle_bucket(masks) -> int:
@@ -104,6 +131,10 @@ class ArmourPlanner:
     ``traj_type="orig"`` is the ARMTD comparison mode: constant-acceleration
     trajectories, no torque constraints, no tracking-error padding.
     ``grasp`` adds the contact constraints of a carried object.
+    ``self_intersection`` adds the separation constraints of non-adjacent
+    links: ``True`` for the home-separated pairs of
+    ``self_intersection_pairs``, a list of (i, j) for those pairs,
+    ``False`` or ``[]`` for none.
     """
 
     spec: RobotSpec
@@ -118,8 +149,12 @@ class ArmourPlanner:
         self.device = resolve_device(self.device)
         if self.traj_type not in ("bernstein", "orig"):
             raise ValueError(f"unknown traj_type {self.traj_type!r}")
-        if self.self_intersection:
-            raise NotImplementedError("self_intersection is not ported")
+        if self.self_intersection is True:
+            self._si_pairs = self_intersection_pairs(self.spec)
+        elif self.self_intersection:
+            self._si_pairs = list(self.self_intersection)
+        else:
+            self._si_pairs = []
         self._armtd = self.traj_type == "orig"
         if self._armtd and self.grasp is not None:
             raise ValueError("grasp constraints need the Bezier reachable sets; "
@@ -155,6 +190,9 @@ class ArmourPlanner:
             jrs = make_bezier_jrs(self.spec, cfg, q0, qd0, qdd0)
             Tqd0, TTqdd0 = jrs.Tqd0, jrs.TTqdd0
         rs = build_reachable_sets(self.spec, cfg, jrs, grasp=self.grasp)
+        si_diff = si_rad = None
+        if self._si_pairs:
+            si_diff, si_rad = build_self_intersection(rs.link_pz, rs.link_indep_gens, self._si_pairs)
         links = pack_pzs(rs.link_pz, axis=2)
         aabb_c = links.c
         aabb_r = links.r + rs.link_indep_gens.abs().sum(-1)
@@ -168,6 +206,7 @@ class ArmourPlanner:
             t_rad=rs.torque_radius,
             q0=q0, qd0=qd0, Tqd0=Tqd0, TTqdd0=TTqdd0,
             k_range=jrs.k_range,
+            si_diff=si_diff, si_rad=si_rad,
         )
         return prob, rs.link_indep_gens, aabb_c, aabb_r
 
@@ -234,11 +273,18 @@ class ArmourPlanner:
         return u * 1.2 - 0.6
 
     def solve(self, prob: ProblemData, q_des, k_rand=None, k_warm=None,
-              generator: torch.Generator | None = None) -> PlanResult:
+              generator: torch.Generator | None = None, collision_group=None) -> PlanResult:
         """NLP phase: constraint closures over a built problem -> multi-start
         ALM -> strict re-verification (`armour.py:347-607`): fused with the
         solver's carried values in hard-max mode, an explicit pass over the
-        candidate pool in smooth mode."""
+        candidate pool in smooth mode.
+
+        ``collision_group``: the process group of a constraint-parallel
+        ("cp") shard of the obstacle axis (`parallel/mesh.py`).  Each rank's
+        bank holds its slice of the obstacle slots; the collision block is
+        all-gathered over the group along the obstacle axis, so every rank
+        sees the unsharded constraint vector.  Every rank of the group must
+        be given the same starts."""
         spec, cfg, dtype, dev = self.spec, self._cfg, self.dtype, self.device
         armtd = self._armtd
         nf = spec.n_factors
@@ -304,8 +350,14 @@ class ArmourPlanner:
                                                               cfg.smooth_collision_tau)
             else:
                 g, Jg = collision_constraints_with_jac_multi(prob.hp, centers, dcenters)
+            if collision_group is not None:
+                g, Jg = gather_obstacles(g, collision_group), gather_obstacles(Jg, collision_group)
             vals.append(g.reshape(B, S, -1))
             jacs.append(Jg.reshape(B, S, nf, -1))
+            if prob.si_diff is not None:
+                cs, Js = self_intersection_with_jac_multi(prob.si_diff, prob.si_rad, K)
+                vals.append(cs.reshape(B, S, -1))
+                jacs.append(Js.reshape(B, S, nf, -1))
             vals.append(pv_fn(K))
             jacs.append(jacobian_t(pv_fn, K))
             return torch.cat(vals, dim=-1), torch.cat(jacs, dim=-1)
@@ -336,8 +388,13 @@ class ArmourPlanner:
                 parts += [(m_t, cfg.torque_violation_threshold)] * 2
             if prob.grasp is not None:
                 parts.append((int(np.prod(prob.grasp.c.shape[1:])), 1e-6))
+            # the self-intersection rows sit between the collision block and
+            # the state block, and take the collision threshold
+            m_si = 0 if prob.si_diff is None else int(np.prod(prob.si_rad.shape[1:3]))
             m_tail = 8 * nf
-            parts.append((m - sum(p[0] for p in parts) - m_tail, cfg.collision_violation_threshold))
+            parts.append((m - sum(p[0] for p in parts) - m_si - m_tail,
+                          cfg.collision_violation_threshold))
+            parts.append((m_si, cfg.collision_violation_threshold))
             parts.append((m_tail, cfg.state_violation_threshold))
             thr = torch.cat([torch.full((sz,), t, dtype=dtype, device=dev) for sz, t in parts])
 
@@ -361,7 +418,13 @@ class ArmourPlanner:
                 gc, gr, _ = prob.grasp.slice_with_jac_multi(pool)
                 blocks.append((gc + gr[:, None], 1e-6))
             centers, _, _ = prob.links.slice_with_jac_multi(pool)
-            blocks.append((collision_values_multi(prob.hp, centers), cfg.collision_violation_threshold))
+            col = collision_values_multi(prob.hp, centers)
+            if collision_group is not None:
+                col = gather_obstacles(col, collision_group)
+            blocks.append((col, cfg.collision_violation_threshold))
+            if prob.si_diff is not None:
+                blocks.append((self_intersection_values_multi(prob.si_diff, prob.si_rad, pool),
+                               cfg.collision_violation_threshold))
             blocks.append((pv_fn(pool), cfg.state_violation_threshold))
             worst = [(v.reshape(B, Np, -1).amax(dim=-1), thr) for v, thr in blocks]
             feas = torch.stack([v <= thr for v, thr in worst]).all(dim=0)

@@ -27,17 +27,38 @@ Phases (each prints one JSON line; any failure exits non-zero):
               controller, RK4 plant at 5e-4 s, 200 steps, all worlds at once
   7. parity   plan() on the card against plan() on the CPU (4 worlds, then
               one world per mode) and a 20-step rollout, T=32, f64
-  8. battery  run_batch_stepped over the 100 worlds of assets/worlds at
+  8. self_intersection
+              ArmourPlanner(self_intersection=True) and rotatotope_planner
+              (orig + SI) at B=128, T=128 on the 8obs worlds, then
+              ArmourPlanner(self_intersection=True) on 128 worlds at rest
+              around Q_SI, where the SI block is near active: plans/s,
+              feasible fraction, pairs and pruned pairs, 65 launches, the
+              worst SI value of the feasible plans <= the collision threshold
+              (some plan must be feasible, except Bernstein + SI on the 8obs
+              worlds, where pair (3, 6) rules out every plan);
+              then rotatotope_planner on the planar 2- and 6-link arms (worlds
+              from numpy seed 0 inside their reach); the main kernel against
+              its plain version on each planar bank
+  9. parity   SI plans on the card against the CPU: ArmourPlanner with
+              self_intersection and rotatotope_planner, 6 worlds at rest
+              around Q_SI each, T=32, f64; some plan of each must be feasible
+10. scale_out
+              sharded_plan_step on an in-process NCCL group of one rank, mesh
+              (1, 1), against plan_batch on the 8obs worlds' 8 slots; then the
+              local bank pass of a cp = 2 rank (4 of 8 slots, 20 of 40) through
+              the step, with the main kernel against its plain version there
+11. battery  run_batch_stepped over the 100 worlds of assets/worlds at
               B=100, T=128, f32, 2 iterations, mesh oracle: one JSON line per
               iteration (wall split, buckets, launches = 65, mesh hits), the
               summary; fails on any safety violation.  The main kernel is held
               against its plain version on the battery's first bank
-  9. hard     the doorway scene with up-front RRT-connect guidance, 2
+12. hard     the doorway scene with up-front RRT-connect guidance, 2
               iterations
- 10. episode  EpisodeRunner.run_batch on 4 worlds and run_recorded_episode on
+13. episode  EpisodeRunner.run_batch on 4 worlds and run_recorded_episode on
               one (save/load round trip), 1 iteration each
- 11. parity   run_batch_stepped on the card against the CPU: 2 worlds, T=32,
-              f64, the same injected draws; every summary field equal
+14. parity   run_batch_stepped on the card against the CPU: 2 worlds, T=32,
+              f64, 2 iterations, the same injected draws; every summary field
+              equal
 The last lines are the kernel table as JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}.  Longer output goes to chiprun_out/.
 """
@@ -132,12 +153,15 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+# a Kinova pose whose self-intersection block is near active (its worst pair
+# value is about -0.03 at k = 0)
+Q_SI = (0.0, 0.5, 0.0, -0.5, 0.0, 0.5, 0.0)
 SAFETY = ("collision", "torque_violation", "joint_limit_violation", "ultimate_bound_violation")
 SUMMARY_FIELDS = ("goal_reached", *SAFETY, "stopped", "iterations", "n_feasible_plans")
 
 
 def episode_phases(torch, dev, check_and_time, rows, out_dir, n_worlds=100, T=128, sim_kw=None):
-    """Phases 8-11, the receding-horizon episode paths: the 100-world battery,
+    """Phases 11-14, the receding-horizon episode paths: the 100-world battery,
     the doorway scene, the episode program and the recorded episode, and the
     battery driver on the card against the CPU.  Every phase resets the
     launch counts just before it and reads them just after.  ``n_worlds``,
@@ -174,7 +198,7 @@ def episode_phases(torch, dev, check_and_time, rows, out_dir, n_worlds=100, T=12
         return {k: float(getattr(s, k).max()) for k in ("jl_overshoot", "ub_overshoot",
                                                         "torque_overshoot")}
 
-    # ---- 8. battery: the 100-world suite, as run_100_worlds loads it ----
+    # ---- 11. battery: the 100-world suite, as run_100_worlds loads it ----
     root = os.path.dirname(os.path.abspath(__file__))
     files = sorted(glob.glob(os.path.join(root, "assets", "worlds", "*.csv")))[:n_worlds]
     assert len(files) == n_worlds, f"{len(files)} world files"
@@ -236,7 +260,7 @@ def episode_phases(torch, dev, check_and_time, rows, out_dir, n_worlds=100, T=12
     if torch.device(dev).type == "cuda":
         torch.cuda.empty_cache()
 
-    # ---- 9. hard: the doorway with up-front configuration-space RRT-connect ----
+    # ---- 12. hard: the doorway with up-front configuration-space RRT-connect ----
     door = hard_scenario(2, cfg.max_obstacles, f32, device=dev)
     hrunner = EpisodeRunner(spec, cfg, SimConfig(max_iterations=2, goal_radius=0.05, **sim_kw),
                             f32, device=dev)
@@ -264,7 +288,7 @@ def episode_phases(torch, dev, check_and_time, rows, out_dir, n_worlds=100, T=12
     safe(s_h, "hard")
     assert "0" in paths, "hard: RRT-connect found no guidance path through the doorway"
 
-    # ---- 10. episode: the episode program and the recorded episode ----
+    # ---- 13. episode: the episode program and the recorded episode ----
     erunner = EpisodeRunner(spec, cfg, SimConfig(max_iterations=1, **sim_kw), f32, device=dev)
     sync()
     kernels.reset_launch_counts()
@@ -300,7 +324,7 @@ def episode_phases(torch, dev, check_and_time, rows, out_dir, n_worlds=100, T=12
                        "launches": counts_r, "feasible": bool(r0.feasible),
                        "saved_arrays": len(z), "log_steps": int(z["q"].shape[0])}})
 
-    # ---- 11. the battery driver on the card against the CPU ----
+    # ---- 14. the battery driver on the card against the CPU ----
     cfg32 = PlannerConfig(num_time_steps=32)
     sim2 = SimConfig(plant_dt=5e-3, max_iterations=2)
     w2 = stack_worlds([load_world_csv(f, cfg32.max_obstacles, f64, device="cpu") for f in files[:2]],
@@ -331,6 +355,285 @@ def episode_phases(torch, dev, check_and_time, rows, out_dir, n_worlds=100, T=12
           "max_abs_overshoot_diff": over_diff, "atol": 1e-9, "card_launches": card_counts,
           "n_feasible_plans": a.n_feasible_plans.tolist()})
     return battery_row
+
+
+def planar_worlds(torch, spec, cfg, B, n_obs=8, seed=0, device="cuda"):
+    """B worlds of a planar arm: q0 uniform in [-0.5, 0.5] per joint,
+    q_des within one k_range of it, and ``n_obs`` boxes (half sides
+    0.05-0.15 m) centred in the arm's plane at 0.3-1.0 of its reach,
+    rejection-screened clear of the start pose, all from numpy ``seed``."""
+    from armour_tpu_torch.collision.zonotope import ObstacleSet
+    from armour_tpu_torch.sim.world import arm_collision_check
+
+    rng = np.random.default_rng(seed)
+    n = spec.n_factors
+    q0 = rng.uniform(-0.5, 0.5, (B, n))
+    q_des = q0 + rng.uniform(-1.0, 1.0, (B, n)) * cfg.k_range
+    n_cand = 4 * n_obs
+    reach = float(np.abs(spec.trans[1:, 0]).sum())
+    r = rng.uniform(0.3, 1.0, (B, n_cand)) * reach
+    th = rng.uniform(-np.pi, np.pi, (B, n_cand))
+    cand = np.zeros((B, n_cand, 4, 3))
+    cand[..., 0, 0], cand[..., 0, 1] = r * np.cos(th), r * np.sin(th)
+    cand[..., 0, 2] = spec.trans[0, 2]
+    half = rng.uniform(0.05, 0.15, (B, n_cand, 3))
+    for i in range(3):
+        cand[..., 1 + i, i] = half[..., i]
+    q = torch.as_tensor(q0, dtype=torch.float32, device=device)[:, None].expand(B, n_cand, n)
+    hits = arm_collision_check(spec, q, ObstacleSet(
+        torch.as_tensor(cand[:, :, None], dtype=torch.float32, device=device),
+        torch.ones((B, n_cand, 1), dtype=torch.bool, device=device))).cpu().numpy()
+    zonos, masks = np.zeros((B, n_obs, 4, 3)), np.zeros((B, n_obs), bool)
+    for b in range(B):
+        keep = np.nonzero(~hits[b])[0][:n_obs]
+        zonos[b, :keep.size], masks[b, :keep.size] = cand[b, keep], True
+    zero = np.zeros((B, n))
+    return q0, zero, zero, q_des, zonos, masks
+
+
+def extension_phases(torch, dev, check_and_time, rows, probs8, probs40, T=128, T_parity=32,
+                     n_parity=6):
+    """Phases 8-10: the self-intersection planner (the Kinova with
+    ``self_intersection=True`` and ``rotatotope_planner``, then the planar
+    2- and 6-link arms), SI plans on the card against the CPU, and the
+    scale-out step on a process group of one rank (NCCL on the card, gloo
+    on the CPU).  Every path resets the launch counts just before it and
+    reads them just after.  Returns the names of the kernel rows it added.
+    ``dev``, ``T`` and the batch of ``probs8`` exist to rehearse the phases
+    at a small size on the CPU."""
+    import socket
+    import warnings
+
+    import torch.distributed as dist
+
+    from armour_tpu_torch.collision import kernels
+    from armour_tpu_torch.collision.zonotope import ObstacleSet, collision_values_multi, kernel_layout
+    from armour_tpu_torch.config import PlannerConfig
+    from armour_tpu_torch.parallel.mesh import cp_shard, make_planner_mesh, sharded_plan_step
+    from armour_tpu_torch.parallel.multihost import gather_summary, init_distributed, scatter_worlds
+    from armour_tpu_torch.planner.armour import ArmourPlanner, gather_obstacles, obstacle_bucket
+    from armour_tpu_torch.planner.rotatotope import rotatotope_planner, self_intersection_values_multi
+    from armour_tpu_torch.problems import problem_set
+    from armour_tpu_torch.robots.kinova import kinova_gen3_spec
+    from armour_tpu_torch.robots.planar import planar_arm_spec
+
+    spec = kinova_gen3_spec()
+    cfg = PlannerConfig(num_time_steps=T)
+    B, n = probs8.q0.shape
+    f32, f64 = torch.float32, torch.float64
+    main_name = "fused_collision_value_jac_multi"
+    zero = {k.__name__: 0 for k in kernels.KERNELS}
+    on_card = torch.device(dev).type == "cuda"
+    added = []
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def passes(pl):
+        return pl.cfg.nlp_outer_iters * pl.cfg.nlp_inner_iters + 1
+
+    def timed(label, pl, fn, warm=True):
+        """fn() once after a warm-up call: (result, seconds, launches); the
+        main kernel must launch once per constraint pass, nothing else."""
+        if warm:
+            fn()
+        sync()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        sec = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        assert counts == dict(zero, **{main_name: passes(pl)}), f"{label}: launches {counts}"
+        return res, sec, counts
+
+    def worst_at_plans(pl, prob, res):
+        """The worst self-intersection and collision values of the plans
+        reported feasible, sliced at the solver's (B, S, n) shape so that a
+        value accepted at the threshold is not re-rounded by another product
+        shape; (None, None) where no plan is feasible."""
+        feas = res.feasible
+        if not bool(feas.any()):
+            return None, None
+        S = pl.cfg.nlp_num_starts
+        k = torch.where(feas[:, None], res.k, 0.0)[:, None].expand(-1, S, -1).contiguous()
+        centers = prob.links.slice_with_jac_multi(k)[0][:, :1].contiguous()
+        col = collision_values_multi(prob.hp, centers).flatten(1).amax(1)
+        if prob.si_diff is None:                     # no pair to check (planar 2)
+            return None, float(col[feas].max())
+        si = self_intersection_values_multi(prob.si_diff, prob.si_rad, k)[:, 0].flatten(1).amax(1)
+        return float(si[feas].max()), float(col[feas].max())
+
+    def kernel_row(name, pl, args, launches, seed):
+        """The main kernel against its plain version on the bank that the
+        planner ``pl`` builds from ``args`` without culling (f32, timed;
+        then f64), noted in the table as ``name``."""
+        for dtype, tol in ((f32, 2e-6), (f64, 1e-12)):
+            p = dataclasses.replace(pl, dtype=dtype, device=dev)
+            prob = p.build_probs(*args[:3], *args[4:], cull=False)
+            hp = prob.hp
+            nf = p.spec.n_factors
+            K = torch.as_tensor(np.random.default_rng(seed).uniform(-0.9, 0.9, (B, p.cfg.nlp_num_starts, nf)),
+                                dtype=dtype, device=dev)
+            c, dc = kernel_layout(*prob.links.slice_with_jac_multi(K)[::2])
+            check_and_time(hp, dtype, tol, kernels.fused_collision_value_jac_multi,
+                           (hp.A, hp.dpos, hp.dneg, c, dc), True,
+                           kernels.tie_mask(hp.A, hp.dpos, hp.dneg, c, tol=1e-5), name,
+                           timed=dtype == f32)
+            del p, prob, hp, K, c, dc
+        rows[name]["replaces"] = "armour_tpu/collision/pallas_kernel.py:166"
+        rows[name]["launches"] = launches
+        added.append(name)
+
+    def near_si(cfg_, n_worlds):
+        """``n_worlds`` Kinova worlds at rest around ``Q_SI`` (8 obstacles
+        clear of the start pose), where the SI block is near active."""
+        p = problem_set(cfg_, n_worlds, n_obs=8, seed=0, device=dev, q_center=Q_SI)
+        rest = np.zeros_like(p.q0)
+        return p._replace(qd0=rest, qdd0=rest)
+
+    # ---- 8. self_intersection: the Kinova, then the planar arms ----------
+    thr = cfg.collision_violation_threshold
+    args8 = (probs8.q0, probs8.qd0, probs8.qdd0, probs8.q_des, probs8.zonos, probs8.masks)
+    args_si = tuple(near_si(cfg, B))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # the PRUNED warning; the pairs are reported below
+        si_planners = {"bernstein+si": ArmourPlanner(spec, cfg, f32, device=dev, self_intersection=True),
+                       "rotatotope": rotatotope_planner(spec, cfg, f32, device=dev)}
+    # around Q_HOME every Bernstein plan breaks pair (3, 6), as in the JAX
+    # package; every other run must give some feasible plan to check
+    for label, worlds, args in (("bernstein+si", "8obs", args8), ("rotatotope", "8obs", args8),
+                                ("bernstein+si", "near_si", args_si)):
+        pl = si_planners[label]
+        kinova_pairs = [tuple(p) for p in pl._si_pairs]
+        pruned = [(i, j) for i in range(spec.n_joints) for j in range(i + 2, spec.n_joints)
+                  if (i, j) not in kinova_pairs]
+        res, sec, counts = timed(label, pl, lambda: pl.plan_batch(*args))
+        prob = pl.build_probs(*args[:3], *args[4:])
+        si_worst, col_worst = worst_at_plans(pl, prob, res)
+        k = res.k.cpu().numpy()
+        f_np = res.feasible.cpu().numpy()
+        assert np.all(np.isfinite(k[f_np])) and np.all(np.isnan(k[~f_np])), label
+        assert si_worst is not None or (label, worlds) == ("bernstein+si", "8obs"), \
+            f"{label} on {worlds}: no feasible plan"
+        assert si_worst is None or si_worst <= thr, f"{label}: a feasible plan's SI value {si_worst}"
+        assert col_worst is None or col_worst <= thr, f"{label}: a feasible plan's collision value {col_worst}"
+        emit({"phase": "self_intersection", "robot": "kinova", "mode": label, "worlds": worlds,
+              "batch": B, "T": T, "dtype": "float32", "seconds_per_batch": sec, "plans_per_s": B / sec,
+              "feasible_fraction": float(res.feasible.float().mean()), "pairs": len(kinova_pairs),
+              "pair_list": kinova_pairs, "pruned_pairs": pruned, "launches_per_plan_batch": counts,
+              "max_si_value_feasible": si_worst, "max_collision_value_feasible": col_worst,
+              "threshold": thr})
+        del res, prob
+    del si_planners, pl, args_si
+    for n_links in (2, 6):
+        pspec = planar_arm_spec(n_links)
+        pl = rotatotope_planner(pspec, cfg, f32, device=dev)
+        pargs = planar_worlds(torch, pspec, cfg, B, device=dev)
+        res, sec, counts = timed(f"planar{n_links}", pl, lambda: pl.plan_batch(*pargs))
+        prob = pl.build_probs(*pargs[:3], *pargs[4:])
+        si_worst, col_worst = worst_at_plans(pl, prob, res)
+        assert si_worst is None or si_worst <= thr, f"planar{n_links}: SI value {si_worst}"
+        assert col_worst is None or col_worst <= thr, f"planar{n_links}: collision value {col_worst}"
+        emit({"phase": "self_intersection", "robot": f"planar{n_links}", "mode": "rotatotope",
+              "batch": B, "T": T, "dtype": "float32", "seconds_per_batch": sec, "plans_per_s": B / sec,
+              "feasible_fraction": float(res.feasible.float().mean()), "pairs": len(pl._si_pairs),
+              "live_obstacles_per_world": float(pargs[5].sum(1).mean()),
+              "bucket": int(prob.hp.dpos.shape[-2]), "launches_per_plan_batch": counts,
+              "max_si_value_feasible": si_worst, "max_collision_value_feasible": col_worst})
+        del res, prob
+        kernel_row(f"{main_name}[planar{n_links}]", pl, pargs, counts[main_name], seed=20 + n_links)
+        del pl
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ---- 9. SI plans on the card against the CPU --------------------------
+    cfgp = dataclasses.replace(cfg, num_time_steps=T_parity)
+    probs4 = near_si(cfgp, n_parity)
+    k_rand = np.random.default_rng(2).uniform(-0.6, 0.6, (n_parity, max(cfg.nlp_num_starts - 2, 1), n))
+    for label in ("bernstein+si", "rotatotope"):
+        planners = {d: (ArmourPlanner(spec, cfgp, f64, device=d, self_intersection=kinova_pairs)
+                        if label == "bernstein+si" else
+                        rotatotope_planner(spec, cfgp, f64, pairs=kinova_pairs, device=d))
+                    for d in (dev, "cpu")}
+        diffs, feas = [], []
+        kernels.reset_launch_counts()
+        for i in range(n_parity):
+            obs = ObstacleSet(probs4.zonos[i], probs4.masks[i])
+            a = (probs4.q0[i], probs4.qd0[i], probs4.qdd0[i], probs4.q_des[i], obs)
+            rg, rc = (planners[d].plan(*a, k_rand=k_rand[i]) for d in (dev, "cpu"))
+            fg, fc = bool(rg.feasible), bool(rc.feasible)
+            assert fg == fc, f"{label} world {i}: card feasible={fg}, CPU feasible={fc}"
+            kg, kc = rg.k.cpu().numpy(), rc.k.numpy()
+            assert fg or (np.isnan(kg).all() and np.isnan(kc).all())
+            diffs.append(float(np.abs(kg - kc).max()) if fg else 0.0)
+            feas.append(fg)
+            assert diffs[-1] <= 1e-6, f"{label} world {i}: |k_card - k_cpu| = {diffs[-1]}"
+        assert any(feas), f"{label}: no feasible plan to compare"
+        card_launches = kernels.launch_counts()[main_name]
+        assert not on_card or card_launches == n_parity * passes(planners[dev]), card_launches
+        emit({"phase": "card_vs_cpu", "mode": label, "worlds": n_parity, "T": T_parity,
+              "dtype": "float64", "feasible": feas, "feasible_equal": True,
+              "max_abs_k_diff": max(diffs), "atol": 1e-6, "card_kernel_launches": card_launches})
+    del planners, probs4
+
+    # ---- 10. scale_out: sharded_plan_step on a group of one rank ----------
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    world = init_distributed(f"127.0.0.1:{port}", 1, 0, device=dev)
+    try:
+        mesh = make_planner_mesh(1)
+        init_s = time.perf_counter() - t0
+        # the 8 slots of plan_batch's bucket (no culling there), for both
+        b8 = obstacle_bucket(probs8.masks)
+        args_b8 = (*args8[:4], probs8.zonos[:, :b8], probs8.masks[:, :b8])
+        step = sharded_plan_step(spec, cfg, mesh, f32)
+        gen = torch.Generator(device=dev).manual_seed(4)
+        k_rand = step.planner.random_starts(B, gen)
+        local = scatter_worlds(mesh, *(x for x in args8[:4]), k_rand)
+        zonos, masks = cp_shard(mesh, args_b8[4]), cp_shard(mesh, args_b8[5])
+        gather_obstacles.calls = 0
+        res_s, sec_s, counts_s = timed("scale_out", step.planner,
+                                       lambda: step(*local[:4], zonos, masks, k_rand=local[4]))
+        cp_gathers = gather_obstacles.calls
+        t1 = time.perf_counter()
+        summary = gather_summary({"k": res_s.k, "feasible": res_s.feasible}, mesh)
+        gather_s = time.perf_counter() - t1
+        unsharded = ArmourPlanner(spec, cfg, f32, device=dev)
+        res_u, sec_u, _ = timed("scale_out reference", unsharded,
+                                lambda: unsharded.plan_batch(*args_b8, k_rand=k_rand), warm=False)
+        f_u = res_u.feasible.cpu().numpy()
+        assert np.array_equal(summary["feasible"], f_u), "scale_out: feasible differs from plan_batch"
+        k_diff = float(np.nan_to_num(np.abs(summary["k"] - res_u.k.cpu().numpy())).max())
+        assert np.array_equal(np.isnan(summary["k"]), np.isnan(res_u.k.cpu().numpy()))
+        assert k_diff <= 1e-6, f"scale_out: |k_sharded - k_plan_batch| = {k_diff}"
+        # the local bank pass a cp = 2 rank makes: half of the 8 slots, and
+        # 20 of the 40 of the 40-obstacle worlds, planned through the step
+        shard_runs = {}
+        for label, probs, cap in (("O=4", probs8, b8 // 2), ("O=20", probs40, probs40.masks.shape[1] // 2)):
+            a = (probs.q0, probs.qd0, probs.qdd0, probs.q_des, probs.zonos[:, :cap], probs.masks[:, :cap])
+            res_c, sec_c, counts_c = timed(f"scale_out {label}", step.planner,
+                                           lambda a=a: step(*a, k_rand=k_rand), warm=False)
+            shard_runs[label] = {"slots": cap, "seconds": sec_c, "plans_per_s": B / sec_c,
+                                 "feasible_fraction": float(res_c.feasible.float().mean()),
+                                 "launches": counts_c}
+            kernel_row(f"{main_name}[{label}]", unsharded, a, counts_c[main_name], seed=30 + cap)
+        emit({"phase": "scale_out", "backend": dist.get_backend(), "world": list(world),
+              "mesh": {"dp": mesh.size(0), "cp": mesh.size(1)}, "batch": B, "T": T, "dtype": "float32",
+              "obstacle_slots": b8, "init_s": init_s, "seconds_per_step": sec_s, "plans_per_s": B / sec_s,
+              "plan_batch_seconds": sec_u, "feasible_fraction": float(f_u.mean()),
+              "feasible_equal": True, "max_abs_k_diff": k_diff, "atol": 1e-6,
+              "launches_per_step": counts_s, "cp_gathers": cp_gathers,
+              "summary_all_gathers": len(summary), "summary_gather_s": gather_s,
+              "cp_shard_local": shard_runs,
+              "note": "one card: dp = cp = 1, so the step makes no cp gather; dp > 1 and "
+                      "cp > 1 are covered by the gloo tests on the CPU (tests/test_torch_parallel.py)"})
+    finally:
+        dist.destroy_process_group()
+    return added
 
 
 def main() -> int:
@@ -447,7 +750,8 @@ def main() -> int:
         outs = got if jac else (got,)
         Sx = 1 if single else args[3].shape[1]
         Bk, P, _, L, O, T = hp.A.shape
-        ops = Bk * Sx * L * O * T * (P * _OPS_PER_PIECE + (n * _OPS_PER_JAC if jac else 0))
+        nk = args[4].shape[1 if single else 2] if jac else n
+        ops = Bk * Sx * L * O * T * (P * _OPS_PER_PIECE + (nk * _OPS_PER_JAC if jac else 0))
         moved = nbytes(*args, *outs)
         b_mem, b_ops = moved / peak_bw * 1e3, ops / peak_f32 * 1e3
         row.update({
@@ -458,7 +762,7 @@ def main() -> int:
             "bytes": moved, "ops": ops,
             "bound_ms": max(b_mem, b_ops), "bound_by": "bytes" if b_mem >= b_ops else "operations",
             "library_ms": None,
-            "shapes": {"B": Bk, "S": Sx, "n": n, "P": P, "L": L, "O": O, "T": T},
+            "shapes": {"B": Bk, "S": Sx, "n": nk, "P": P, "L": L, "O": O, "T": T},
         })
         emit({"phase": "kernel_time", **{k: row[k] for k in
               ("name", "ms", "plain_ms", "bytes", "bound_ms", "bound_by", "shapes")}})
@@ -811,14 +1115,20 @@ def main() -> int:
     emit({"phase": "card_vs_cpu", "path": "rollout", "worlds": 4, "steps": 20,
           "dtype": "float64", "max_abs_q_end_diff": end_diff, "atol": 1e-9})
 
-    # ---- 8-11. the receding-horizon episode paths --------------------------
-    del res8, prob8, probs40
+    # ---- 8-10. self-intersection, its card-vs-CPU parity, scale-out --------
+    del res8, prob8
+    torch.cuda.empty_cache()
+    ext_rows = extension_phases(torch, dev, check_and_time, rows, probs8, probs40,
+                                T=cfg.num_time_steps)
+
+    # ---- 11-14. the receding-horizon episode paths -------------------------
+    del probs40
     torch.cuda.empty_cache()
     battery_row = episode_phases(torch, dev, check_and_time, rows, out_dir)
 
     # ---- tail ------------------------------------------------------------
     order = ("fused_collision_value_jac_multi", "fused_collision_values_multi",
-             "fused_collision_value_jac", pool_name, many_name, wide_name, battery_row)
+             "fused_collision_value_jac", pool_name, many_name, wide_name, *ext_rows, battery_row)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     table = []

@@ -2,13 +2,15 @@
 in float64: ``armtd_ref``, the JRS PZs of ``make_armtd_jrs`` (centers,
 generators, radii), both extrema and their forward-mode Jacobians, and
 ``ArmourPlanner(traj_type="orig")`` end to end on a free and a blocked
-world.  Inputs come from a numpy seed; two worlds at once in the port.
+world, and with the self-intersection block.  Inputs come from a numpy
+seed; two worlds at once in the port.
 
 Tolerances: rtol 1e-9 (atol 1e-12) for the closed forms and the PZ sets;
 plans: ``feasible`` equal and k within 1e-6, the JAX random starts
 injected through ``k_rand``.
 """
 
+import dataclasses
 import types
 
 import jax
@@ -156,5 +158,14 @@ def test_orig_mode_refuses_what_it_cannot_build():
         ArmourPlanner(spec, cfg, device="cpu", traj_type="orig", grasp=GraspConfig())
     with pytest.raises(ValueError, match="traj_type"):
         ArmourPlanner(spec, cfg, device="cpu", traj_type="spline")
-    with pytest.raises(NotImplementedError, match="self_intersection"):
-        ArmourPlanner(spec, cfg, device="cpu", self_intersection=True)
+    # the self-intersection block builds, and combines with 'orig' (the
+    # legacy rotatotope planner): a free world plans with it
+    with pytest.warns(UserWarning, match="PRUNED"):
+        si = ArmourPlanner(spec, cfg, device="cpu", self_intersection=True)
+    assert si._si_pairs and all(j >= i + 2 for i, j in si._si_pairs)
+    small = dataclasses.replace(cfg, nlp_num_starts=2, nlp_outer_iters=4, nlp_inner_iters=4)
+    orig_si = ArmourPlanner(spec, small, device="cpu", traj_type="orig", self_intersection=si._si_pairs)
+    res = orig_si.plan(Q_HOME, np.zeros(7), np.zeros(7), Q_HOME + 0.05,
+                       ObstacleSet.from_boxes([[5.0, 5.0, 5.0]], [[0.1, 0.1, 0.1]], 4))
+    assert bool(res.feasible) and bool(torch.isfinite(res.k).all())
+    assert ArmourPlanner(spec, cfg, device="cpu", self_intersection=[])._si_pairs == []

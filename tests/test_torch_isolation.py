@@ -152,6 +152,48 @@ def test_episode_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch, tmp_
     assert world.random_world(spec, 2, 4, torch.Generator(), device="cpu").start.device.type == "cpu"
 
 
+def test_si_urdf_and_scale_out_need_a_card_unless_asked_for_cpu(monkeypatch):
+    """The self-intersection planner, the URDF calibration and the
+    scale-out run on the card unless given ``device="cpu"``, or, for the
+    mesh and the sharded step, a gloo process group."""
+    import socket
+    import types
+
+    import torch.distributed as dist
+
+    from armour_tpu_torch.parallel.mesh import make_planner_mesh, sharded_plan_step
+    from armour_tpu_torch.parallel.multihost import init_distributed
+    from armour_tpu_torch.planner.rotatotope import rotatotope_planner
+    from armour_tpu_torch.robots.planar import planar_arm_spec
+    from armour_tpu_torch.robots.urdf import calibrate_mass_eigs
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec, cfg = planar_arm_spec(2), PlannerConfig(num_time_steps=8)
+    calls = [
+        lambda: rotatotope_planner(spec, cfg),
+        lambda: calibrate_mass_eigs(spec, n_samples=2),
+        lambda: make_planner_mesh(1),
+        lambda: sharded_plan_step(spec, cfg, types.SimpleNamespace(device_type="cuda")),
+        lambda: init_distributed("127.0.0.1:1", 1, 0),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert rotatotope_planner(spec, cfg, device="cpu").device == torch.device("cpu")
+    assert calibrate_mass_eigs(spec, n_samples=2, device="cpu").m_min_eig > 0.0
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    assert init_distributed(f"127.0.0.1:{port}", 1, 0, device="cpu") == (1, 0)
+    try:
+        assert dist.get_backend() == "gloo"
+        mesh = make_planner_mesh()
+        assert mesh.device_type == "cpu" and mesh.mesh.shape == (1, 1)
+        assert sharded_plan_step(spec, cfg, mesh).planner.device == torch.device("cpu")
+    finally:
+        dist.destroy_process_group()
+
+
 def test_tf32_is_off():
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False

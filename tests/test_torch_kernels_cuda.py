@@ -6,7 +6,8 @@ test skips).  This file imports no JAX, so it runs on a machine without it:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
 
 Random banks cover every (A, offsets) type pair the kernels take, the
-obstacle buckets 8, 16 and 40, time axes of 1, 5, 32, 127 and others that
+obstacle buckets 8, 16 and 40, the shards of a constraint-parallel rank
+(O = 4 and 20), the planar arms (L = n = 2 and 6), time axes of 1, 5, 32, 127 and others that
 are no multiple of the tile, slabs whose rows are not 16-byte aligned (the
 kernel's direct path instead of its staged one), pair counts other than 36
 (fewer than the ring has stages, and no multiple of it), 1 to 20 starts
@@ -45,6 +46,10 @@ SHAPES = [  # B, S, n, L, O, T and, where it is not 36, P
     (1, 4, 7, 7, 16, 64),
     (2, 4, 7, 7, 8, 128, 5),     # P = 5: the generic pair loop
     (1, 10, 2, 5, 3, 33, 3),     # P = 3, fewer pairs than stages; direct path
+    (2, 4, 2, 2, 8, 128),        # the planar 2-link arm: L = n = 2
+    (2, 4, 6, 6, 8, 128),        # the planar 6-link arm: L = n = 6
+    (2, 4, 7, 7, 4, 128),        # a cp = 2 shard of 8 obstacle slots: O = 4
+    (1, 4, 7, 7, 20, 128),       # a cp = 2 shard of 40 slots: O = 20, staged (20 % 4 = 0)
 ]
 JAC_STARTS, VALUE_STARTS = 8, 16   # starts per launch
 ATOL = {torch.float32: 2e-6, torch.float64: 1e-12}
