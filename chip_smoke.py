@@ -59,6 +59,23 @@ Phases (each prints one JSON line; any failure exits non-zero):
 14. parity   run_batch_stepped on the card against the CPU: 2 worlds, T=32,
               f64, 2 iterations, the same injected draws; every summary field
               equal
+15. reference_schema
+              export_reference_schema.export at T=128, 20 samples per
+              interval, f64 and f32, into chiprun_out/reference_schema{,_f32}/:
+              every number of the .out files (the build time aside) within the
+              printed digits of results/reference_schema{,_f32}/, 0 containment
+              violations, the minimum margins to 1e-9 (f64) and 1e-5 (f32);
+              then the offline-set slicing on a synthetic set, card against CPU
+16. figures  constraint_traces over the 89 replans of
+              assets/figures/scenario3_recording.npz, T=128, f32: one launch
+              of the values-only kernel, the rebuilt torque radii equal to the
+              recorded ones (rtol 1e-5), feasible replans within the
+              thresholds, card against CPU to 1e-5; every figure function once
+              (None where matplotlib is missing); the kernel against its plain
+              version at that batch
+17. grasp_example
+              grasp_example.main on the card: a feasible grasp plan, 65 main
+              kernel launches per plan; the kernel at the example's shape
 The last lines are the kernel table as JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}.  Longer output goes to chiprun_out/.
 """
@@ -636,6 +653,210 @@ def extension_phases(torch, dev, check_and_time, rows, probs8, probs40, T=128, T
     return added
 
 
+def tool_phases(torch, dev, check_and_time, rows, out_dir):
+    """Phases 15-17: the reference-schema export held to the committed
+    artifacts (and the offline-set slicing, card against CPU), the
+    constraint traces of the committed recording (card against CPU) and the
+    figure functions, and the grasp example.  Each path resets the launch
+    counts just before it and reads them just after.  Returns the names of
+    the kernel rows it added.  ``dev`` exists to rehearse the phases on the
+    CPU."""
+    from armour_tpu_torch import grasp_example
+    from armour_tpu_torch.collision import kernels
+    from armour_tpu_torch.collision.zonotope import ObstacleSet, kernel_layout
+    from armour_tpu_torch.config import GraspConfig, PlannerConfig
+    from armour_tpu_torch.export_reference_schema import OUT_FILES, export
+    from armour_tpu_torch.jrs import offline
+    from armour_tpu_torch.planner.armour import ArmourPlanner
+    from armour_tpu_torch.robots.kinova import kinova_gen3_spec
+    from armour_tpu_torch.sim.recording import load_recording
+    from armour_tpu_torch.utils import plotting
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    spec = kinova_gen3_spec()
+    f32, f64 = torch.float32, torch.float64
+    zero = {k.__name__: 0 for k in kernels.KERNELS}
+    on_card = torch.device(dev).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def numbers(path):
+        with open(path) as f:
+            return [[float(x) for x in ln.split()] for ln in f if ln.strip()]
+
+    # ---- 15. reference_schema: the export against the committed artifacts ----
+    # (rtol, atol) by file ("" for every other), minimum-margin tolerance
+    cases = (("float64", f64, "reference_schema",
+              {"": (5.5e-10, 1e-15), "armour_main_constraints.out": (5.5e-6, 1e-12)}, 1e-9),
+             ("float32", f32, "reference_schema_f32", {"": (1e-5, 1e-12)}, 1e-5))
+    for label, dtype, name, tols, margin_tol in cases:
+        ref_dir = os.path.join(root, "results", name)
+        sync()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        report = export(os.path.join(out_dir, name), time_steps=128, n_samples=20, dtype=dtype,
+                        device=dev)
+        sync()
+        seconds = time.perf_counter() - t0
+        assert kernels.launch_counts() == zero, "the export launched a kernel"
+        worst = {}
+        for fname in OUT_FILES:
+            got = numbers(os.path.join(out_dir, name, fname))
+            ref = numbers(os.path.join(ref_dir, fname))
+            if fname == "armour_main.out":          # the last line is the build time
+                got, ref = got[:-1], ref[:-1]
+            assert [len(r) for r in got] == [len(r) for r in ref], f"{label} {fname}: layout"
+            g, r = np.concatenate(got), np.concatenate(ref)
+            rtol, atol = tols.get(fname, tols[""])
+            excess = np.abs(g - r) - (atol + rtol * np.abs(r))
+            worst[fname] = float(excess.max())
+            assert worst[fname] <= 0.0, f"{label} {fname}: {worst[fname]} over the tolerance"
+        with open(os.path.join(ref_dir, "containment_report.json")) as f:
+            ref_report = json.load(f)
+        margins = {k: report[k] - ref_report[k] for k in ("torque_min_margin_Nm", "link_min_margin_m")}
+        assert report["torque_containment_violations"] == 0, report
+        assert report["link_center_containment_violations"] == 0, report
+        assert all(abs(v) <= margin_tol for v in margins.values()), margins
+        emit({"phase": "reference_schema", "pipeline": label, "time_steps": 128,
+              "samples_per_interval": 20, "build_ms": report["build_ms"], "seconds": seconds,
+              "max_excess_over_tolerance": worst, "report": report, "margin_diff": margins,
+              "margin_atol": margin_tol, "launches": kernels.launch_counts()})
+    # the offline-set slicing on a synthetic 100-step set (the reference's .mat
+    # files are not in the repository): card against CPU
+    rng = np.random.default_rng(5)
+    Zs = []
+    for _ in range(100):
+        Z = np.concatenate([rng.uniform(-1, 1, (6, 1)), rng.normal(scale=0.05, size=(6, 6))], axis=1)
+        Z[[offline.DIM_KA, offline.DIM_KV], 1:] = 0.0
+        Z[offline.DIM_KA, 2], Z[offline.DIM_KV, 5] = 0.3, 0.4
+        Z[[offline.DIM_KA, offline.DIM_KV], 0] = 0.1
+        Zs.append(Z)
+    jrs = offline.OfflineJRS(0.0, 0.5, 1.0, Zs)
+    out = {d: offline.sliced_cos_sin_intervals(jrs, 0.7, 0.25, -0.05, device=d) for d in (dev, "cpu")}
+    diff = max(float((a.cpu() - b).abs().max()) for a, b in zip(out[dev][:4], out["cpu"][:4]))
+    sl = offline.zonotope_slice(Zs[0], offline.DIM_KV, 0.25, device=dev)
+    diff = max(diff, float((sl.cpu() - offline.zonotope_slice(Zs[0], offline.DIM_KV, 0.25,
+                                                              device="cpu")).abs().max()))
+    assert out[dev][0].device.type == torch.device(dev).type and out[dev][4] == out["cpu"][4]
+    assert diff <= 1e-12, f"offline slicing: card against CPU {diff}"
+    emit({"phase": "reference_schema", "path": "offline_jrs", "steps": 100, "dtype": "float64",
+          "max_abs_diff_card_cpu": diff, "atol": 1e-12})
+
+    # ---- 16. figures: the constraint traces of the committed recording ----
+    rec = load_recording(os.path.join(root, "assets", "figures", "scenario3_recording.npz"))
+    cfg = PlannerConfig()
+    n_it = rec["k"].shape[0]
+    sync()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    tr = plotting.constraint_traces(rec, spec, cfg, f32, dev)
+    sync()
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    values_name = "fused_collision_values_multi"
+    # all iterations are one batch and one start: one launch
+    assert counts == dict(zero, **{values_name: 1}), counts
+    t0 = time.perf_counter()
+    tr_cpu = plotting.constraint_traces(rec, spec, cfg, f32, "cpu")
+    cpu_seconds = time.perf_counter() - t0
+    rad_rel = float((np.abs(tr.torque_radius - rec["torque_radius"]) / np.abs(rec["torque_radius"])).max())
+    assert rad_rel <= 1e-5, f"figures: rebuilt torque radii differ from the recording by {rad_rel}"
+    feas = tr.feasible
+    assert feas.any() and np.array_equal(feas, rec["feasible"])
+    assert np.all(tr.col_max[feas] <= cfg.collision_violation_threshold), tr.col_max
+    assert np.all(tr.tor_util[feas] <= 0.0), tr.tor_util
+    card_cpu = max(float(np.abs(tr.col_max - tr_cpu.col_max).max()),
+                   float(np.abs(tr.tor_util - tr_cpu.tor_util).max()))
+    assert card_cpu <= 1e-5, f"figures: card against CPU {card_cpu}"
+    # every figure function once: None where matplotlib is missing, a PNG where not
+    fig_dir = os.path.join(out_dir, "figures")
+    os.makedirs(fig_dir, exist_ok=True)
+    sub = dict(rec, **{k: rec[k][:2] for k in ("k", "feasible", "q0p", "qd0p", "qdd0p", "torque_radius")})
+    cfg16 = PlannerConfig(num_time_steps=16)
+    grasp = GraspConfig(object_mass=0.5, u_s=0.6, surf_rad=0.029)
+
+    def fig(name):
+        return os.path.join(fig_dir, name)
+
+    drawn = {
+        "plot_tracking": plotting.plot_tracking(rec, spec, fig("tracking.png")),
+        "plot_torques": plotting.plot_torques(rec, spec, fig("torques.png")),
+        "plot_world_topdown": plotting.plot_world_topdown(rec, spec, fig("world.png"), device=dev),
+        "plot_frs_topdown": plotting.plot_frs_topdown(sub, spec, fig("frs.png"), cfg=cfg16, device=dev),
+        "plot_constraint_traces": plotting.plot_constraint_traces(sub, spec, fig("constraints.png"),
+                                                                  cfg=cfg16, device=dev),
+        "plot_frs_overlay": plotting.plot_frs_overlay(sub, spec, fig("overlay.png"), cfg=cfg16,
+                                                      device=dev),
+        "plot_joint_limits": plotting.plot_joint_limits(rec, spec, fig("joint_limits.png")),
+        "plot_grasp_wrench": plotting.plot_grasp_wrench(spec, grasp, lambda t: np.zeros(7),
+                                                        fig("wrench.png"), device=dev),
+        "plot_frs_animation_frames": plotting.plot_frs_animation_frames(sub, spec, fig("frames"),
+                                                                        cfg=cfg16, device=dev),
+    }
+    for name, got in drawn.items():
+        assert (got is None) == (not plotting.HAVE_MPL), f"{name} returned {got!r}"
+    # the values-only kernel at this batch's shape, against its plain version
+    planner = ArmourPlanner(spec, cfg, f32, device=dev)
+    prob = planner.build_probs(rec["q0p"], rec["qd0p"], rec["qdd0p"],
+                               np.repeat(rec["obstacles"][None], n_it, 0),
+                               np.repeat(rec["obstacle_mask"][None], n_it, 0), cull=False)
+    hp = prob.hp
+    c = kernel_layout(prob.links.slice_with_jac_multi(planner._t(np.nan_to_num(rec["k"]))[:, None])[0])
+    traces_row = f"{values_name}[constraint_traces]"
+    check_and_time(hp, f32, 2e-6, kernels.fused_collision_values_multi, (hp.A, hp.dpos, hp.dneg, c),
+                   False, kernels.tie_mask(hp.A, hp.dpos, hp.dneg, c, tol=1e-5), traces_row, timed=True)
+    rows[traces_row]["replaces"] = "armour_tpu/collision/pallas_kernel.py:225"
+    rows[traces_row]["launches"] = counts[values_name]
+    emit({"phase": "figures", "recording": "assets/figures/scenario3_recording.npz",
+          "iterations": n_it, "T": cfg.num_time_steps, "dtype": "float32",
+          "bucket": int(hp.dpos.shape[-2]), "seconds": seconds, "cpu_seconds": cpu_seconds,
+          "launches": counts, "max_rel_torque_radius_diff": rad_rel, "rtol": 1e-5,
+          "feasible_iterations": int(feas.sum()),
+          "max_col_feasible": float(tr.col_max[feas].max()),
+          "max_torque_util_feasible": float(tr.tor_util[feas].max()),
+          "max_abs_diff_card_cpu": card_cpu, "atol": 1e-5, "have_matplotlib": plotting.HAVE_MPL,
+          "figures": {k: (v if isinstance(v, (str, type(None))) else len(v)) for k, v in drawn.items()}})
+    del planner, prob, hp, c
+
+    # ---- 17. grasp_example: two plans through the example's entry point ----
+    main_name = "fused_collision_value_jac_multi"
+    sync()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = grasp_example.main(["--device", str(dev), "--out", os.path.join(out_dir, "grasp_wrench.png")])
+    sync()
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    passes = cfg.nlp_outer_iters * cfg.nlp_inner_iters + 1
+    assert res["grasp_feasible"], res
+    # the grasp plan and the free plan: one launch per constraint pass each
+    assert counts == dict(zero, **{main_name: 2 * passes}), counts
+    emit({"phase": "grasp_example", "T": 64, "dtype": "float32", "seconds": seconds,
+          "launches": counts, "launches_per_plan": counts[main_name] // 2, **res})
+    # the main kernel at the example's shape (one world, 8 slots, T=64)
+    gcfg = PlannerConfig(num_time_steps=64, max_obstacles=8)
+    q0 = np.array([0.0, -0.5, 0.0, -2.0, 0.0, -0.6, 0.0])
+    obs = ObstacleSet.from_boxes([[0.5, 0.3, 0.4]], [[0.15, 0.15, 0.15]], gcfg.max_obstacles)
+    grasp_row = f"{main_name}[grasp_example]"
+    for dtype, tol in ((f32, 2e-6), (f64, 1e-12)):
+        pl = ArmourPlanner(spec, gcfg, dtype, device=dev, grasp=grasp)
+        prob = pl.build_probs(q0[None], np.zeros((1, 7)), np.zeros((1, 7)), obs.zonos[None],
+                              obs.mask[None], cull=False)
+        hp = prob.hp
+        K = torch.as_tensor(np.random.default_rng(40).uniform(-0.9, 0.9, (1, gcfg.nlp_num_starts, 7)),
+                            dtype=dtype, device=dev)
+        c, dc = kernel_layout(*prob.links.slice_with_jac_multi(K)[::2])
+        check_and_time(hp, dtype, tol, kernels.fused_collision_value_jac_multi,
+                       (hp.A, hp.dpos, hp.dneg, c, dc), True,
+                       kernels.tie_mask(hp.A, hp.dpos, hp.dneg, c, tol=1e-5), grasp_row,
+                       timed=dtype == f32)
+    rows[grasp_row]["replaces"] = "armour_tpu/collision/pallas_kernel.py:166"
+    rows[grasp_row]["launches"] = counts[main_name]
+    return [traces_row, grasp_row]
+
+
 def main() -> int:
     import torch
 
@@ -1126,9 +1347,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     battery_row = episode_phases(torch, dev, check_and_time, rows, out_dir)
 
+    # ---- 15-17. the reference-schema export, the figures, the grasp example ----
+    torch.cuda.empty_cache()
+    tool_rows = tool_phases(torch, dev, check_and_time, rows, out_dir)
+
     # ---- tail ------------------------------------------------------------
     order = ("fused_collision_value_jac_multi", "fused_collision_values_multi",
-             "fused_collision_value_jac", pool_name, many_name, wide_name, *ext_rows, battery_row)
+             "fused_collision_value_jac", pool_name, many_name, wide_name, *ext_rows, battery_row,
+             *tool_rows)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     table = []

@@ -5,6 +5,8 @@
   source of the port or ``chip_smoke.py`` imports them.
 - An entry point called without ``device=`` on a machine without CUDA
   raises instead of running on the CPU.
+- The figure modules import where matplotlib is missing, and their figure
+  functions then return None.
 - A kernel wrapper given CPU tensors runs the plain version and launches
   nothing; given tensors on any other non-CUDA device it raises.
 - ``chip_smoke.py`` exits non-zero and prints no result line without CUDA,
@@ -192,6 +194,75 @@ def test_si_urdf_and_scale_out_need_a_card_unless_asked_for_cpu(monkeypatch):
         assert sharded_plan_step(spec, cfg, mesh).planner.device == torch.device("cpu")
     finally:
         dist.destroy_process_group()
+
+
+def test_export_offline_figures_and_grasp_example_need_a_card_unless_asked_for_cpu(monkeypatch,
+                                                                                   tmp_path):
+    """The reference-schema export, the offline-set slicing, the figures
+    that compute, `make_figures` and the grasp example run on the card
+    unless given ``device="cpu"``; none writes anything before it raises."""
+    from armour_tpu_torch import export_reference_schema, grasp_example, make_figures
+    from armour_tpu_torch.config import GraspConfig
+    from armour_tpu_torch.jrs import offline
+    from armour_tpu_torch.sim.recording import load_recording
+    from armour_tpu_torch.utils import plotting
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec, grasp = kinova_gen3_spec(), GraspConfig()
+    rec_path = ROOT / "assets" / "figures" / "scenario3_recording.npz"
+    rec = load_recording(rec_path)
+    Z = np.zeros((6, 3))
+    Z[offline.DIM_KV, 1] = Z[offline.DIM_KA, 2] = 1.0
+    jrs = offline.OfflineJRS(0.0, 0.5, 1.0, [Z])
+    out = tmp_path / "out"
+    calls = [
+        lambda: export_reference_schema.export(out, time_steps=8, n_samples=1),
+        lambda: export_reference_schema.main(["--outdir", str(out)]),
+        lambda: offline.zonotope_slice(Z, offline.DIM_KV, 0.0),
+        lambda: offline.sliced_cos_sin_intervals(jrs, 0.0, 0.0, 0.0),
+        lambda: plotting.sliced_frs(rec, spec, [0]),
+        lambda: plotting.constraint_traces(rec, spec),
+        lambda: plotting.grasp_wrench(spec, grasp, lambda t: np.zeros(7)),
+        lambda: make_figures.main(["--rec", str(rec_path), "--out-dir", str(out)]),
+        lambda: grasp_example.main(["--out", str(out / "w.png")]),
+    ]
+    if plotting.HAVE_MPL:
+        calls += [
+            lambda: plotting.plot_world_topdown(rec, spec, out / "w.png"),
+            lambda: plotting.plot_frs_topdown(rec, spec, out / "f.png"),
+            lambda: plotting.plot_constraint_traces(rec, spec, out / "c.png"),
+            lambda: plotting.plot_frs_overlay(rec, spec, out / "o.png"),
+            lambda: plotting.plot_frs_animation_frames(rec, spec, out / "frames"),
+            lambda: plotting.plot_grasp_wrench(spec, grasp, lambda t: np.zeros(7), out / "g.png"),
+        ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not out.exists()
+    lo, hi, _, _, g_ka = offline.sliced_cos_sin_intervals(jrs, 0.0, 0.0, 0.0, device="cpu")
+    assert lo.device == torch.device("cpu") and g_ka == 1.0
+
+
+def test_figure_modules_import_without_matplotlib():
+    """With matplotlib blocked, `utils.plotting`, `make_figures` and the
+    grasp example import (as on a card machine without it), and every
+    figure function returns None instead of a figure."""
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "sys.modules['matplotlib'] = None\n"
+        "from armour_tpu_torch.utils import plotting\n"
+        "from armour_tpu_torch import grasp_example, make_figures\n"
+        "assert not plotting.HAVE_MPL\n"
+        "names = [n for n in dir(plotting) if n.startswith('plot_')]\n"
+        "outs = {n: getattr(plotting, n)(*(['unused'] * (4 if n == 'plot_grasp_wrench' else 3)))\n"
+        "        for n in names}\n"
+        "print(len(names), sorted(set(map(repr, outs.values()))))\n"
+    )
+    out = subprocess.run([sys.executable, "-I", "-c", code], capture_output=True, text=True,
+                         timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["9", "['None']"]
 
 
 def test_tf32_is_off():

@@ -13,6 +13,9 @@ not end within ``JOIN_S`` fails instead of hanging the suite.
   JAX scale-out test's own tolerance).
 - Every rank draws its starts from its own generator, and still every rank
   of a cp group plans from the starts of the group's first rank.
+- In smooth collision mode (tau = 1e-3) the same meshes gather the smooth
+  bound on every constraint pass and the verification pool's values once,
+  and equal the port's unsharded smooth ``plan_batch`` on the same starts.
 - `python -m armour_tpu_torch.run_sharded` (the several-card run) holds
   dp=1 x cp=2 against ``plan_batch`` on the CPU at a tiny size.
 - `scatter_worlds` / `gather_summary` round-trip the worlds in dp order;
@@ -44,6 +47,7 @@ CFG_KW = dict(num_time_steps=8, max_obstacles=4, nlp_num_starts=2,
               nlp_outer_iters=4, nlp_inner_iters=4)
 B = 2
 JOIN_S = 300
+SMOOTH_TAU = 1e-3
 MESHES = {"dp2xcp2": (4, 2), "dp1xcp2": (2, 2)}   # world size, cp size
 
 
@@ -84,7 +88,7 @@ def _spawn(world, cp_size, out_dir):
     import torch_parallel_worker
 
     ctx = mp.start_processes(torch_parallel_worker.run,
-                             args=(world, _free_port(), cp_size, str(out_dir), CFG_KW),
+                             args=(world, _free_port(), cp_size, str(out_dir), CFG_KW, SMOOTH_TAU),
                              nprocs=world, join=False, start_method="spawn")
     deadline = time.monotonic() + JOIN_S
     try:
@@ -173,6 +177,23 @@ def test_cp_ranks_plan_from_the_first_ranks_starts(ranks, inputs, port_planner):
     for out in outs:
         _assert_same_plans(out["own_feasible"], out["own_k"], first, 2e-6)
         np.testing.assert_array_equal(out["own_k"], outs[0]["own_k"])
+
+
+def test_sharded_smooth_plan_matches_unsharded(ranks, inputs):
+    """Smooth collision mode through the cp gathers: the smooth bound and
+    its Jacobian on every constraint pass, the explicit verification pool's
+    values once; the plans equal the unsharded smooth plan."""
+    _, outs = ranks
+    smooth = ArmourPlanner(kinova_gen3_spec(),
+                           PlannerConfig(**CFG_KW, smooth_collision_tau=SMOOTH_TAU), device="cpu")
+    ref = _plan(smooth, inputs[0], inputs[0]["k_rand"])
+    assert bool(ref.feasible.all())
+    passes = CFG_KW["nlp_outer_iters"] * CFG_KW["nlp_inner_iters"] + 1
+    for out in outs:
+        assert int(out["smooth_gathers"]) == 2 * passes + 1
+        _assert_same_plans(out["smooth_feasible"], out["smooth_k"], ref, 2e-6)
+        np.testing.assert_allclose(out["smooth_max_violation"], ref.max_violation.numpy(),
+                                   rtol=0, atol=1e-9)
 
 
 def test_run_sharded_script_on_gloo(capsys):
