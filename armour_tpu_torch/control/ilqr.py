@@ -21,11 +21,11 @@ comparison baseline (like nominal/PID).
 from __future__ import annotations
 
 import torch
-from torch.func import jacfwd
 
 from armour_tpu_torch.control.robust import _position_error
 from armour_tpu_torch.device import resolve_device
 from armour_tpu_torch.dynamics.rnea import LinkConstants, bias_forces, link_constants, mass_matrix, rnea
+from armour_tpu_torch.planner.nlp import jacobian_t
 from armour_tpu_torch.robots.spec import RobotSpec
 
 
@@ -69,9 +69,11 @@ def tvlqr_gain_schedule(
         b = bias_forces(spec, q, qd, consts=consts)
         return torch.cat([qd, torch.linalg.solve(M, u - b)], dim=-1)
 
-    # every row of x is its own (world, knot): the Jacobian of the sum over
-    # rows holds each row's (2nf, 2nf) block
-    Jx = jacfwd(lambda xx: f(xx).sum(0))(x).movedim(1, 0)             # (rows, 2nf, 2nf)
+    # every row of x is its own (world, knot): one tangent per coordinate,
+    # the same in every row, gives each row's (2nf, 2nf) block, in memory
+    # linear in the rows (a Jacobian of the sum over rows would push a
+    # tangent per row and coordinate)
+    Jx = jacobian_t(f, x).transpose(-1, -2)                           # (rows, 2nf, 2nf)
     Minv = torch.linalg.inv(mass_matrix(spec, x[..., :nf], include_armature=True, consts=consts))
     eye = torch.eye(2 * nf, dtype=dtype, device=dev)
     A_all = (eye + dt_knot * Jx).reshape(lead + (n_knots, 2 * nf, 2 * nf))

@@ -144,8 +144,7 @@ def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a x b as one fused call; a constant 3-vector is expanded (a view)
     because ``linalg.cross`` wants equal ranks."""
     if a.ndim != b.ndim:
-        shape = torch.broadcast_shapes(a.shape, b.shape)
-        a, b = a.expand(shape), b.expand(shape)
+        a, b = torch.broadcast_tensors(a, b)
     return torch.linalg.cross(a, b, dim=-1)
 
 

@@ -94,7 +94,10 @@ def sharded_plan_step(spec: RobotSpec, cfg: PlannerConfig, mesh: DeviceMesh,
     bucket, so every rank's bank has one shape for the gather (as the JAX
     package's ``_make_plan_fn``).  The random starts (``k_rand`` or drawn
     from ``generator``) of the cp group's first rank are broadcast to the
-    group.  The warm start is zero, as in the JAX step.
+    group.  The warm start is zero, as in the JAX step.  With cp > 1 the
+    solver's iteration runs op by op, because the all-gather of the
+    collision block sits inside it; with cp = 1 it is a CUDA graph, as in
+    ``plan_batch``.
     """
     planner = ArmourPlanner(spec, cfg, dtype, device=mesh_device(mesh))
     cp_group = mesh.get_group("cp") if mesh.size(1) > 1 else None

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -50,7 +50,7 @@ from armour_tpu_torch.jrs.bezier import (
     q_des_fn,
 )
 from armour_tpu_torch.ops.pz import PackedPZ, pack_pzs
-from armour_tpu_torch.planner.nlp import jacobian_t, solve_box_alm_multi
+from armour_tpu_torch.planner.nlp import diagonal_jacobian_t, solve_box_alm_multi
 from armour_tpu_torch.planner.rotatotope import (
     build_self_intersection,
     self_intersection_pairs,
@@ -71,6 +71,14 @@ class PlanResult(NamedTuple):
     cost: torch.Tensor           # (B,) final cost (unscaled by COST_SCALE)
     max_violation: torch.Tensor  # (B,)
     torque_radius: torch.Tensor  # (B, T, nf)
+
+
+class NLPFunctions(NamedTuple):
+    """The NLP's closures over one built problem (``nlp_functions``)."""
+
+    f: Callable        # K (B, S, n) -> cost (B, S)
+    limits: Callable   # K (B, S, n) -> the state-limit block (B, S, 8 n)
+    cj: Callable       # K (B, S, n) -> (c (B, S, m), Jt (B, S, n, m))
 
 
 class ProblemData(NamedTuple):
@@ -272,20 +280,14 @@ class ArmourPlanner:
                        dtype=self.dtype, device=self.device)
         return u * 1.2 - 0.6
 
-    def solve(self, prob: ProblemData, q_des, k_rand=None, k_warm=None,
-              generator: torch.Generator | None = None, collision_group=None) -> PlanResult:
-        """NLP phase: constraint closures over a built problem -> multi-start
-        ALM -> strict re-verification (`armour.py:347-607`): fused with the
-        solver's carried values in hard-max mode, an explicit pass over the
-        candidate pool in smooth mode.
-
-        ``collision_group``: the process group of a constraint-parallel
-        ("cp") shard of the obstacle axis (`parallel/mesh.py`).  Each rank's
-        bank holds its slice of the obstacle slots; the collision block is
-        all-gathered over the group along the obstacle axis, so every rank
-        sees the unsharded constraint vector.  Every rank of the group must
-        be given the same starts."""
-        spec, cfg, dtype, dev = self.spec, self._cfg, self.dtype, self.device
+    def nlp_functions(self, prob: ProblemData, q_des, collision_group=None) -> NLPFunctions:
+        """The NLP's closures over a built problem (`armour.py:347-440`):
+        the cost, the state-limit block and the fused constraint pass.  The
+        cost is a sum of per-joint terms and the state-limit block is
+        elementwise over joints, so their exact derivatives come from one
+        all-ones tangent (`planner/nlp.py`).  ``collision_group``: see
+        ``solve``."""
+        spec, cfg, dev = self.spec, self._cfg, self.device
         armtd = self._armtd
         nf = spec.n_factors
         B = prob.q0.shape[0]
@@ -300,6 +302,7 @@ class ArmourPlanner:
         vel_ub = self._t(spec.speed_limits - qde)
         cont = torch.as_tensor(spec.continuous_joints, device=dev)
         s_plan = cfg.t_plan / cfg.duration
+        t_plan = self._t(cfg.t_plan)     # a device tensor: the solver's graph makes none
         # per-world data broadcast against K (..., B, S, n)
         q0b, qd0b = prob.q0[:, None], prob.qd0[:, None]
         Tqd0b, TTqdd0b = prob.Tqd0[:, None], prob.TTqdd0[:, None]
@@ -309,7 +312,7 @@ class ArmourPlanner:
 
         def f_fn(K):
             if armtd:
-                q_plan, _, _ = armtd_ref(q0b, qd0b, k_rng * K, cfg.t_plan, cfg.t_plan, cfg.duration)
+                q_plan, _, _ = armtd_ref(q0b, qd0b, k_rng * K, t_plan, cfg.t_plan, cfg.duration)
             else:
                 q_plan = q_des_fn(q0b, Tqd0b, TTqdd0b, k_rng * K, s_plan)
             d = q_plan - q_desb
@@ -359,8 +362,34 @@ class ArmourPlanner:
                 vals.append(cs.reshape(B, S, -1))
                 jacs.append(Js.reshape(B, S, nf, -1))
             vals.append(pv_fn(K))
-            jacs.append(jacobian_t(pv_fn, K))
+            jacs.append(diagonal_jacobian_t(pv_fn, K))
             return torch.cat(vals, dim=-1), torch.cat(jacs, dim=-1)
+
+        return NLPFunctions(f_fn, pv_fn, cj_multi)
+
+    def solve(self, prob: ProblemData, q_des, k_rand=None, k_warm=None,
+              generator: torch.Generator | None = None, collision_group=None,
+              eager: bool = False) -> PlanResult:
+        """NLP phase: constraint closures over a built problem -> multi-start
+        ALM -> strict re-verification (`armour.py:347-607`): fused with the
+        solver's carried values in hard-max mode, an explicit pass over the
+        candidate pool in smooth mode.  On a card the solver's Gauss-Newton
+        iteration runs as a CUDA graph; ``eager=True`` runs it op by op, to
+        hold the two against each other.
+
+        ``collision_group``: the process group of a constraint-parallel
+        ("cp") shard of the obstacle axis (`parallel/mesh.py`).  Each rank's
+        bank holds its slice of the obstacle slots; the collision block is
+        all-gathered over the group along the obstacle axis, so every rank
+        sees the unsharded constraint vector.  Every rank of the group must
+        be given the same starts.  The gather is a collective that the
+        graph does not capture, so a sharded solve runs op by op."""
+        spec, cfg, dtype, dev = self.spec, self._cfg, self.dtype, self.device
+        nf = spec.n_factors
+        B = prob.q0.shape[0]
+        t_lim = self._t(spec.torque_limits)
+        t_rad = prob.t_rad[:, None]                              # (B, 1, T, nf)
+        f_fn, pv_fn, cj_multi = self.nlp_functions(prob, q_des, collision_group)
 
         # multi-start: k = 0 (reference init, NLPclass.cu:193-199) + warm
         # start + random interior points (uarmtd_planner.m:768)
@@ -371,7 +400,8 @@ class ArmourPlanner:
                         self._t(k_rand)], dim=1)
 
         sol = solve_box_alm_multi(f_fn, cj_multi, K0, outer_iters=cfg.nlp_outer_iters,
-                                  inner_iters=cfg.nlp_inner_iters)
+                                  inner_iters=cfg.nlp_inner_iters, separable_cost=True,
+                                  eager=eager or collision_group is not None)
 
         pool = torch.cat([sol.k, sol.k_feas, K0[:, :2]], dim=1)   # (B, 2S+2, n)
         if cfg.smooth_collision_tau == 0.0:
@@ -443,11 +473,13 @@ class ArmourPlanner:
 
     # -- entry points -----------------------------------------------------
     def plan_batch(self, q0, qd0, qdd0, q_des, zonos, masks, k_rand=None, k_warm=None,
-                   generator: torch.Generator | None = None) -> PlanResult:
+                   generator: torch.Generator | None = None, eager: bool = False) -> PlanResult:
         """Plan B worlds: q0/qd0/qdd0/q_des (B, nf), zonos (B, cap, 4, 3),
-        masks (B, cap); ``k_rand`` (B, S-2, nf) overrides the random starts."""
+        masks (B, cap); ``k_rand`` (B, S-2, nf) overrides the random starts.
+        ``eager``: see ``solve``."""
         probs = self.build_probs(q0, qd0, qdd0, zonos, masks)
-        return self.solve(probs, q_des, k_rand=k_rand, k_warm=k_warm, generator=generator)
+        return self.solve(probs, q_des, k_rand=k_rand, k_warm=k_warm, generator=generator,
+                          eager=eager)
 
     def plan(self, q0, qd0, qdd0, q_des, obstacles: ObstacleSet, k_rand=None, k_warm=None,
              generator: torch.Generator | None = None) -> PlanResult:

@@ -9,6 +9,14 @@ tensor carries (B worlds, S starts) in front; the constraint Jacobian is
 kept TRANSPOSED, (B, S, n, m), which is the layout the collision kernel
 writes, so the hot loop never transposes it.
 
+On a card, ``solve_box_alm_multi``'s Gauss-Newton iteration is captured
+once per call as a CUDA graph and replayed (`utils/graphs.py`), the
+counterpart of the JAX package's compiled ``lax.scan``.  A caller that
+knows its cost is a sum of per-coordinate terms, or a constraint block
+elementwise over the coordinates, takes their exact derivatives from one
+all-ones tangent (``separable_cost_derivatives``,
+``diagonal_jacobian_t``) instead of n.
+
 Problem form:  min f(k)  s.t.  c(k) <= 0 (one-sided),  k in [-1, 1]^n.
 """
 
@@ -20,6 +28,7 @@ import torch
 from torch.func import grad, jvp, vmap
 
 from armour_tpu_torch.ops.linalg import spd_solve_small
+from armour_tpu_torch.utils.graphs import stepper
 
 
 class ALMResult(NamedTuple):
@@ -53,6 +62,31 @@ def cost_derivatives(f_fn: Callable, K: torch.Tensor):
     reverse, as ``jax.hessian``)."""
     g_fn = grad(lambda k: f_fn(k).sum())
     return g_fn(K), jacobian_t(g_fn, K)
+
+
+def diagonal_jacobian_t(fn: Callable, K: torch.Tensor) -> torch.Tensor:
+    """``jacobian_t(fn, K)`` for an ``fn: (..., n) -> (..., b*n)`` whose
+    every block of n outputs is elementwise over the n inputs (output
+    ``[..., b*n + j]`` depends on ``K[..., j]`` alone): one all-ones tangent
+    carries every nonzero entry, and entry ``[..., i, b*n + j]`` is
+    ``delta_ij * d[..., b*n + j]``.  The tangent of output j meets only the
+    tangent of input j, so the entries are those of ``jacobian_t``, bit for
+    bit (where ``jacobian_t`` writes an off-diagonal zero as -0.0, this
+    writes 0.0).  The caller vouches for the structure: nothing here checks it."""
+    n = K.shape[-1]
+    d = jvp(fn, (K,), (torch.ones_like(K),))[1]                  # (..., b*n)
+    blocks = torch.diag_embed(d.unflatten(-1, (-1, n)))           # (..., b, n, n)
+    return blocks.transpose(-3, -2).flatten(-2)                   # (..., n, b*n)
+
+
+def separable_cost_derivatives(f_fn: Callable, K: torch.Tensor):
+    """``cost_derivatives`` for a cost that is a sum of per-coordinate terms
+    over the last axis: its Hessian is diagonal, and one all-ones tangent
+    through the gradient gives it (the entries of ``cost_derivatives``,
+    bit for bit up to the sign of a zero, as in ``diagonal_jacobian_t``)."""
+    g_fn = grad(lambda k: f_fn(k).sum())
+    g, h = jvp(g_fn, (K,), (torch.ones_like(K),))
+    return g, torch.diag_embed(h)
 
 
 def solve_box_alm(
@@ -176,12 +210,25 @@ def solve_box_alm_multi(
     mu_max: float = 1e6,
     newton_reg: float = 1e-8,
     ls_steps: int = 4,
+    separable_cost: bool = False,
+    eager: bool = False,
 ) -> ALMResult:
     """Start-batched ALM: all S starts of all B worlds advance in lockstep,
     so the constraint bank is streamed ONCE per Gauss-Newton iteration.
 
     ``f_fn``: K (..., n) -> (...), independent across leading dims.
     ``cj_fn_multi``: K (B, S, n) -> (c (B, S, m), Jt (B, S, n, m)).
+    ``separable_cost``: the caller knows that ``f_fn`` is a sum of
+    per-coordinate terms, so its Hessian is diagonal
+    (``separable_cost_derivatives``); the solver does not guess.
+
+    On a card the Gauss-Newton iteration is one CUDA graph, captured at the
+    first iteration of this call and replayed for the others: ``f_fn`` and
+    ``cj_fn_multi`` must then neither synchronise with the host nor make
+    tensors from host data, and the graph reads whatever they close over
+    by address, so it is never kept beyond the call.  ``eager=True`` runs
+    the iteration op by op instead, to hold the graph against it; the CPU
+    always runs op by op.
     """
     B, S, n = K0.shape
     dtype, dev = K0.dtype, K0.device
@@ -196,9 +243,11 @@ def solve_box_alm_multi(
     # CANDIDATE; (c, J) at the current iterate are carried, the model line
     # search picks the candidate, and acceptance is decided on the EXACT
     # augmented-Lagrangian merit at that candidate.
+    derivatives = separable_cost_derivatives if separable_cost else cost_derivatives
+
     def inner_step(K, c, Jt, lam, mu, scale):
         a = torch.clamp(lam + mu[..., None] * c, min=0.0)          # (B, S, m)
-        fgrad, fhess = cost_derivatives(f_fn, K)
+        fgrad, fhess = derivatives(f_fn, K)
         grad_al = fgrad + torch.einsum("bsnm,bsm->bsn", Jt, a)
         active = (a > 0.0).to(dtype)
         H = mu[..., None, None] * torch.matmul(Jt * active[:, :, None, :], Jt.transpose(-1, -2))
@@ -229,18 +278,27 @@ def solve_box_alm_multi(
 
     c0, J0 = cj_fn_multi(K0)                                      # init bank pass
     m = c0.shape[-1]
-    K, c, Jt = K0, c0, J0
+    # the iteration's state, in buffers that every iteration updates in
+    # place (the graph's inputs and outputs)
+    K, c, Jt = K0.clone(), c0.clone(), J0.clone()
     lam = torch.zeros((B, S, m), dtype=dtype, device=dev)
     mu = torch.full((B, S), mu0, dtype=dtype, device=dev)
+    scale = torch.ones((B, S), dtype=dtype, device=dev)
+
+    def step():
+        for buf, new in zip((K, c, Jt, scale), inner_step(K, c, Jt, lam, mu, scale)):
+            buf.copy_(new)
+
+    iterate = stepper(step, dev, eager)
     prev_viol = torch.full((B, S), torch.inf, dtype=dtype, device=dev)
     K_feas = K0
     f_feas = torch.full((B, S), torch.inf, dtype=dtype, device=dev)
     v_feas = torch.full((B, S), torch.inf, dtype=dtype, device=dev)
     found = torch.zeros((B, S), dtype=torch.bool, device=dev)
     for _ in range(outer_iters):
-        scale = torch.ones((B, S), dtype=dtype, device=dev)
+        scale.fill_(1.0)
         for _ in range(inner_iters):
-            K, c, Jt, scale = inner_step(K, c, Jt, lam, mu, scale)
+            iterate()
         # c is exact at K (carried from the accepted candidate's pass)
         viol = torch.amax(torch.clamp(c, min=0.0), dim=-1)
         f_now = f_fn(K)
@@ -250,8 +308,8 @@ def solve_box_alm_multi(
         f_feas = torch.where(upd, f_now, f_feas)
         v_feas = torch.where(upd, c_max, v_feas)
         found = found | upd
-        lam = torch.clamp(lam + mu[..., None] * c, min=0.0)
-        mu = torch.where(viol > 0.25 * prev_viol, torch.clamp(mu * mu_growth, max=mu_max), mu)
+        lam.copy_(torch.clamp(lam + mu[..., None] * c, min=0.0))
+        mu.copy_(torch.where(viol > 0.25 * prev_viol, torch.clamp(mu * mu_growth, max=mu_max), mu))
         prev_viol = viol
     return ALMResult(k=K, max_violation=prev_viol, cost=f_fn(K), k_feas=K_feas,
                      found_feas=found, c=c, c0=c0, v_feas=v_feas)

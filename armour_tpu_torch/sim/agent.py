@@ -7,12 +7,16 @@ diagonal (`uarmtd_agent.m:385-424`), integrated with RK4 at a fixed
 sub-millisecond step instead of ode15s (`uarmtd_agent.m:292-311`).
 
 The JAX package runs the steps as one jitted ``lax.scan`` per world; here
-the loop over steps is Python and every tensor carries the worlds in front
-(state (B, nf); any leading dims, or none, work).  Each step is written for
-few device launches: the seven unit accelerations of the mass matrix and
-the bias forces are ONE stacked RNEA pass with a leading axis of 8, the
-joint rotations are computed once per evaluation point, and the link
-constants are made once per rollout.
+every tensor carries the worlds in front (state (B, nf); any leading dims,
+or none, work), and on a card one step is captured as a CUDA graph at the
+first step of each ``rollout`` call and replayed for the others
+(`utils/graphs.py`).  The step's time, noise row and iLQR knot are read
+from per-call device tables at a device step index that the step itself
+advances, so nothing of the host is frozen into the graph.  Each step is
+written for few device launches: the seven unit accelerations of the mass
+matrix and the bias forces are ONE stacked RNEA pass with a leading axis of
+8, the joint rotations are computed once per evaluation point, and the
+link constants are made once per rollout.
 
 Measurement noise comes from an explicit ``torch.Generator`` (or a given
 ``noise`` tensor); the JAX package draws it from ``jax.random``, so the two
@@ -39,6 +43,7 @@ from armour_tpu_torch.jrs.armtd import armtd_ref
 from armour_tpu_torch.jrs.bezier import bezier_ref
 from armour_tpu_torch.ops.linalg import spd_solve_small
 from armour_tpu_torch.robots.spec import RobotSpec
+from armour_tpu_torch.utils.graphs import stepper
 
 CONTROLLERS = ("robust", "althoff", "nominal", "pid", "ilqr")
 
@@ -141,6 +146,7 @@ def rollout(
     traj_type: str = "bernstein",
     device=None,
     dtype: torch.dtype = torch.float64,
+    eager: bool = False,
 ):
     """Integrate the closed loop over [0, t_move] for all worlds at once.
 
@@ -155,6 +161,8 @@ def rollout(
     ``traj_type``: trajectory family the plant tracks ("bernstein" Bezier
     or "orig" ARMTD peak-and-brake; t_plan = sim.t_move as in the
     reference where t_plan == t_move).
+    ``eager``: on a card, run every step op by op instead of replaying the
+    step's CUDA graph, to hold the two against each other.
     Returns (q_end, qd_end, log at check_dt resolution).
     """
     if controller not in CONTROLLERS:
@@ -182,14 +190,27 @@ def rollout(
     def ref(t):
         return traj_eval(traj, t, duration, traj_type, sim.t_move)
 
+    # per-step host values as device tables, read at the device step index
+    step_i = torch.zeros(1, dtype=torch.long, device=dev)
+    t_tab = torch.tensor([i * dt for i in range(n_steps)], dtype=dtype, device=dev)
     if controller == "ilqr":
         # TVLQR backward pass once per rollout; gains looked up per step
         lqr_K, _ = tvlqr_gain_schedule(
             spec, ref, sim.t_move, sim.check_dt, device=dev, dtype=dtype)
         n_knots = lqr_K.shape[-3]
+        # the step's time over the knot spacing as ONE product: exact where
+        # the ratio is, while (i * dt) / check_dt can round under a knot
+        # boundary (0.29 / 0.01 < 29); the JAX package's compiled rollout
+        # folds the constants the same way
+        knot_tab = torch.tensor([min(int(i * (dt / sim.check_dt)), n_knots - 1)
+                                 for i in range(n_steps)], dtype=torch.long, device=dev)
 
-    def control(i, t, q, qd, i_err, q_des, qd_des, qdd_des):
-        qm, qdm = (q, qd) if noise is None else (q + noise[i, 0], qd + noise[i, 1])
+    def control(q, qd, i_err, q_des, qd_des, qdd_des):
+        if noise is None:
+            qm, qdm = q, qd
+        else:
+            row = noise.index_select(0, step_i)[0]
+            qm, qdm = q + row[0], qd + row[1]
         if controller == "robust":
             u, _, _ = robust_control(spec, qm, qdm, q_des, qd_des, qdd_des, consts=nominal)
         elif controller == "althoff":
@@ -200,13 +221,8 @@ def rollout(
         elif controller == "pid":
             u, _, _ = pid_control(spec, qm, qdm, q_des, qd_des, qdd_des, i_err, consts=nominal)
         else:
-            # the step's time over the knot spacing as ONE product: exact where
-            # the ratio is, while (i * dt) / check_dt can round under a knot
-            # boundary (0.29 / 0.01 < 29); the JAX package's compiled rollout
-            # folds the constants the same way
-            knot = min(int(i * (dt / sim.check_dt)), n_knots - 1)
-            u, _, _ = ilqr_control(spec, qm, qdm, q_des, qd_des, qdd_des,
-                                   lqr_K[..., knot, :, :], consts=nominal)
+            gain = lqr_K.index_select(-3, knot_tab.index_select(0, step_i)).squeeze(-3)
+            u, _, _ = ilqr_control(spec, qm, qdm, q_des, qd_des, qdd_des, gain, consts=nominal)
         return u, qm - q_des
 
     # the plant's M(q) columns (unit accelerations, no gravity) and bias
@@ -232,15 +248,19 @@ def rollout(
         # M is SPD (mass matrix + transmission inertia on the diagonal)
         return spd_solve_small(M, u - out[nf])
 
-    state_q, state_qd = q, qd
+    # the step's state, in buffers that every step updates in place (the
+    # graph's inputs and outputs); `last` holds the last step's reference
+    # and input for the log, in buffers made at the first step (a capture
+    # computes nothing, so the log never reads a tensor the capture made)
+    state_q, state_qd = q.clone(), qd.clone()
     i_err = torch.zeros_like(q)
-    hist = []
-    for i in range(n_steps):
+    last = {}
+
+    def step():
         q, qd = state_q, state_qd
-        t = i * dt
-        q_ref, qd_ref, qdd_ref = ref(t)
+        q_ref, qd_ref, qdd_ref = ref(t_tab.index_select(0, step_i).reshape(()))
         # zero-order hold within the step
-        u, e_pos = control(i, t, q, qd, i_err, q_ref, qd_ref, qdd_ref)
+        u, e_pos = control(q, qd, i_err, q_ref, qd_ref, qdd_ref)
 
         k1q, k1v = qd, plant_acc(q, qd, u)
         q2, v2 = q + 0.5 * dt * k1q, qd + 0.5 * dt * k1v
@@ -249,15 +269,32 @@ def rollout(
         k3q, k3v = v3, plant_acc(q3, v3, u)
         q4, v4 = q + dt * k3q, qd + dt * k3v
         k4q, k4v = v4, plant_acc(q4, v4, u)
-        state_q = q + dt / 6.0 * (k1q + 2 * k2q + 2 * k3q + k4q)
-        state_qd = qd + dt / 6.0 * (k1v + 2 * k2v + 2 * k3v + k4v)
+        new_q = q + dt / 6.0 * (k1q + 2 * k2q + 2 * k3q + k4q)
+        new_qd = qd + dt / 6.0 * (k1v + 2 * k2v + 2 * k3v + k4v)
         # i_err is the continuous-time integral of the position error
         # (dt-scaled), an intentional deviation from robot_arm_PID_LLC.m:90,
         # which sums raw per-step error; pid_control's K_i is tuned for the
         # dt-scaled form and is integrator-step-size independent
-        i_err = i_err + dt * e_pos
-        if i % log_every == 0:  # check_dt resolution for the safety oracles
-            hist.append((t, q, qd, q_ref, qd_ref, u))
+        i_err.copy_(i_err + dt * e_pos)
+        state_q.copy_(new_q)
+        state_qd.copy_(new_qd)
+        step_i.add_(1)
+        for name, x in (("q_ref", q_ref), ("qd_ref", qd_ref), ("u", u)):
+            if name in last:
+                last[name].copy_(x)
+            else:
+                last[name] = x.clone()
+
+    advance = stepper(step, dev, eager)
+    hist = []
+    for i in range(n_steps):
+        logged = i % log_every == 0    # check_dt resolution for the safety oracles
+        if logged:
+            q_i, qd_i = state_q.clone(), state_qd.clone()
+        advance()
+        if logged:
+            hist.append((i * dt, q_i, qd_i, last["q_ref"].clone(), last["qd_ref"].clone(),
+                         last["u"].clone()))
 
     log = RolloutLog(
         t=torch.tensor([h[0] for h in hist], dtype=dtype, device=dev),

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from armour_tpu_torch.collision.zonotope import ObstacleSet
-from armour_tpu_torch.device import resolve_device
+from armour_tpu_torch.device import resolve_device, to_numpy
 from armour_tpu_torch.robots.spec import RobotSpec
 from armour_tpu_torch.sim.world import World, arm_collision_check
 
@@ -85,13 +85,15 @@ def generate_random_world(
 ) -> World:
     """Random start/goal + obstacles with rejection sampling so that the arm
     at start and goal is collision-free with a safety buffer
-    (`arm_world_static.m:154-264`)."""
+    (`arm_world_static.m:154-264`).  The screens run on ``device``, where
+    the world is returned."""
+    dev = resolve_device(device)
     lb = np.where(spec.continuous_joints, -PI, spec.pos_limits_lb + 0.1)
     ub = np.where(spec.continuous_joints, PI, spec.pos_limits_ub - 0.1)
 
     start = rng.uniform(lb, ub)
     goal = rng.uniform(lb, ub)
-    qs = torch.as_tensor(np.stack([start, goal]), dtype=torch.float64)
+    qs = torch.as_tensor(np.stack([start, goal]), dtype=torch.float64, device=dev)
 
     centers, sides = [], []
     attempts = 0
@@ -103,12 +105,12 @@ def generate_random_world(
         cand = ObstacleSet.from_boxes(np.asarray(centers + [c]),
                                       np.asarray(sides + [s + 0.15]),  # creation buffer
                                       len(centers) + 1)
-        obs = ObstacleSet(torch.as_tensor(cand.zonos), torch.as_tensor(cand.mask))
+        obs = ObstacleSet(torch.as_tensor(cand.zonos, device=dev), torch.as_tensor(cand.mask, device=dev))
         if bool(arm_collision_check(spec, qs, obs).any()):
             continue
         centers.append(c)
         sides.append(s)
-    return _world(start, goal, np.asarray(centers), np.asarray(sides), capacity, dtype, device)
+    return _world(start, goal, np.asarray(centers), np.asarray(sides), capacity, dtype, dev)
 
 
 def generate_world_suite(
@@ -118,22 +120,25 @@ def generate_world_suite(
     obstacle_counts=(10, 20, 40),
     capacity: int = 40,
     seed: int = 0,
+    device="cpu",
 ):
     """Generate and persist a benchmark suite (the analog of
-    `saved_worlds/random/` x 100 CSVs, freshly sampled).  Host work only."""
+    `saved_worlds/random/` x 100 CSVs, freshly sampled).  The sampling is
+    host work; the collision screens run on ``device`` (the CPU unless
+    given: `generate_worlds` passes the card)."""
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(seed)
     paths = []
     for i in range(n_worlds):
         n_obs = obstacle_counts[i % len(obstacle_counts)]
-        w = generate_random_world(spec, rng, n_obs, capacity, device="cpu")
-        zon = w.obstacles.zonos.numpy()
-        live = w.obstacles.mask.numpy()
+        w = generate_random_world(spec, rng, n_obs, capacity, device=device)
+        zon = to_numpy(w.obstacles.zonos)
+        live = to_numpy(w.obstacles.mask)
         centers = zon[live, 0, :]
         sides = np.abs(zon[live, 1:, :]).sum(axis=1) * 2.0
         p = out / f"scene_{n_obs:03d}_{i + 1:03d}.csv"
-        save_world_csv(p, w.start.numpy(), w.goal.numpy(), centers, sides)
+        save_world_csv(p, to_numpy(w.start), to_numpy(w.goal), centers, sides)
         paths.append(p)
     return paths
 

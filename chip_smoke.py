@@ -76,6 +76,22 @@ Phases (each prints one JSON line; any failure exits non-zero):
 17. grasp_example
               grasp_example.main on the card: a feasible grasp plan, 65 main
               kernel launches per plan; the kernel at the example's shape
+18. graphs   the CUDA graphs of the solver iteration and of the RK4 step
+              (every phase above runs them) against the same steps run op by
+              op: plan_batch at B=128, T=128 on 8obs, 40obs, orig, 12 starts,
+              smooth, grasp, Bernstein + SI (near_si) and rotatotope, and two
+              world sets in a row, equal to the bit with the launches of the
+              eager run; batch-1 plans; 200-step rollouts of the five
+              controllers in f32 and f64, equal to the bit; both times and
+              the capture ms
+19. controller_sweep
+              compare_controllers.main (16 trajectories, 6 uncertainty levels,
+              5 controllers, 1,000 steps): every within_ultimate_bound flag
+              equal to results/r4_controller_sweep.json's, every error within
+              SWEEP_RTOL of it
+20. simple_example
+              simple_example.main: the two-box episode at T=64, up to 30
+              iterations; goal reached, no collision, 65 launches per plan
 The last lines are the kernel table as JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}.  Longer output goes to chiprun_out/.
 """
@@ -175,6 +191,9 @@ def nbytes(*tensors) -> int:
 Q_SI = (0.0, 0.5, 0.0, -0.5, 0.0, 0.5, 0.0)
 SAFETY = ("collision", "torque_violation", "joint_limit_violation", "ultimate_bound_violation")
 SUMMARY_FIELDS = ("goal_reached", *SAFETY, "stopped", "iterations", "n_feasible_plans")
+# the controller sweep's rows against results/r4_controller_sweep.json, the
+# tolerance tests/test_torch_compare_controllers.py states
+SWEEP_RTOL = 1e-2
 
 
 def episode_phases(torch, dev, check_and_time, rows, out_dir, n_worlds=100, T=128, sim_kw=None):
@@ -857,6 +876,218 @@ def tool_phases(torch, dev, check_and_time, rows, out_dir):
     return [traces_row, grasp_row]
 
 
+def graph_phases(torch, dev, probs8, probs40, out_dir, T=128):
+    """Phase 18: the CUDA graphs of the solver iteration and of the RK4 step
+    held against the same steps run op by op (every plan_batch mode, SI,
+    rotatotope, two world sets in a row, batch-1 plans, five controllers in
+    f32 and f64), with both times and the capture ms.  Every path resets
+    the launch counts just before it and reads them just after.  ``dev``
+    and ``T`` exist to rehearse the phase at a small size on the CPU (where
+    graph and eager are one path)."""
+    from armour_tpu_torch.collision import kernels
+    from armour_tpu_torch.config import GraspConfig, PlannerConfig, SimConfig
+    from armour_tpu_torch.planner.armour import ArmourPlanner, obstacle_bucket
+    from armour_tpu_torch.planner.rotatotope import rotatotope_planner
+    from armour_tpu_torch.problems import problem_set
+    from armour_tpu_torch.robots.kinova import kinova_gen3_spec
+    from armour_tpu_torch.sim.agent import CONTROLLERS, TrajParams, TrueParams, rollout
+    from armour_tpu_torch.utils.graphs import CapturedStep
+
+    spec = kinova_gen3_spec()
+    cfg = PlannerConfig(num_time_steps=T)
+    B, n = probs8.q0.shape
+    f32, f64 = torch.float32, torch.float64
+    main_name = "fused_collision_value_jac_multi"
+    zero = {k.__name__: 0 for k in kernels.KERNELS}
+    on_card = torch.device(dev).type == "cuda"
+    passes = cfg.nlp_outer_iters * cfg.nlp_inner_iters + 1
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def run(fn):
+        """(result, seconds, launches, capture ms) of fn()."""
+        sync()
+        kernels.reset_launch_counts()
+        CapturedStep.last_capture_ms = 0.0
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0, kernels.launch_counts(), CapturedStep.last_capture_ms
+
+    def bits(x):
+        x = x.detach().cpu().contiguous()
+        if not x.is_floating_point():
+            return x
+        return x.view({f64: torch.int64, f32: torch.int32}[x.dtype])
+
+    def same(a, b):
+        return torch.equal(bits(a), bits(b))
+
+    # ---- 18. graphs: every plan_batch path, graph against eager ----------
+    grasp = GraspConfig(object_mass=0.2, u_s=0.6, surf_rad=0.03)
+    q_tray = np.array([0.0, -0.5, 0.0, -2.0, 0.0, -0.6, 0.0])
+    q0_g = q_tray + np.random.default_rng(0).uniform(-0.05, 0.05, (B, n))
+    zonos_g = np.zeros((B, cfg.max_obstacles, 4, 3))
+    zonos_g[:, 0, 0], zonos_g[:, 0, 1:] = 5.0, 0.05 * np.eye(3)
+    masks_g = np.zeros((B, cfg.max_obstacles), bool)
+    masks_g[:, 0] = True
+    near = problem_set(cfg, B, n_obs=8, seed=0, device=dev, q_center=Q_SI)
+    near = near._replace(qd0=np.zeros_like(near.q0), qdd0=np.zeros_like(near.q0))
+    args8, args40, args_si = (tuple(p) for p in (probs8, probs40, near))
+    args_g = (q0_g, np.zeros((B, n)), np.zeros((B, n)), q0_g + 0.3 * cfg.k_range, zonos_g, masks_g)
+    cases = (
+        ("8obs", ArmourPlanner(spec, cfg, f32, device=dev), args8, {main_name: passes}),
+        ("40obs", ArmourPlanner(spec, cfg, f32, device=dev), args40, {main_name: passes}),
+        ("orig", ArmourPlanner(spec, cfg, f32, device=dev, traj_type="orig"), args8, {main_name: passes}),
+        ("12starts", ArmourPlanner(spec, dataclasses.replace(cfg, nlp_num_starts=12), f32, device=dev),
+         args8, {main_name: 2 * passes}),
+        ("smooth", ArmourPlanner(spec, dataclasses.replace(cfg, smooth_collision_tau=1e-3), f32,
+                                 device=dev), args8, {"fused_collision_values_multi": 1}),
+        ("grasp", ArmourPlanner(spec, cfg, f32, device=dev, grasp=grasp), args_g, {main_name: passes}),
+        ("bernstein+si", ArmourPlanner(spec, cfg, f32, device=dev, self_intersection=True), args_si,
+         {main_name: passes}),
+        ("rotatotope", rotatotope_planner(spec, cfg, f32, device=dev), args8, {main_name: passes}),
+    )
+    plan_rows = {}
+    for label, pl, args, expect in cases:
+        k_rand = pl.random_starts(B, torch.Generator(device=dev).manual_seed(4))
+        res, secs, counts = {}, {}, {}
+        for eager in (True, False):
+            res[eager], secs[eager], counts[eager], cap = run(
+                lambda: pl.plan_batch(*args, k_rand=k_rand, eager=eager))
+            assert counts[eager] == dict(zero, **expect), f"graphs {label}: launches {counts[eager]}"
+        a, g = res[True], res[False]
+        equal = {"k": same(a.k, g.k), "feasible": torch.equal(a.feasible, g.feasible),
+                 "max_violation": same(a.max_violation, g.max_violation)}
+        k_diff = float(np.nan_to_num((a.k - g.k).abs().cpu().numpy()).max())
+        assert all(equal.values()) or (equal["feasible"] and k_diff <= 1e-6), \
+            f"graphs {label}: graph against eager {equal}, |dk| {k_diff}"
+        plan_rows[label] = {"eager_s": secs[True], "graph_s": secs[False],
+                            "eager_plans_per_s": B / secs[True], "graph_plans_per_s": B / secs[False],
+                            "capture_ms": cap, "bits_equal": equal, "max_abs_k_diff": k_diff,
+                            "feasible_fraction": float(g.feasible.float().mean()),
+                            "launches_graph": counts[False]}
+        emit({"phase": "graphs", "path": "plan_batch", "mode": label, "batch": B, "T": T,
+              "dtype": "float32", **plan_rows[label]})
+        del res, a, g
+    del cases
+    # two different world sets in a row: each graph belongs to its own solve
+    pl = ArmourPlanner(spec, cfg, f32, device=dev)
+    sets = [args8, tuple(problem_set(cfg, B, n_obs=8, seed=3, device=dev))]
+    k_rand = pl.random_starts(B, torch.Generator(device=dev).manual_seed(5))
+    graphed = [run(lambda a=a: pl.plan_batch(*a, k_rand=k_rand))[0] for a in sets]
+    eager_r = [pl.plan_batch(*a, k_rand=k_rand, eager=True) for a in sets]
+    consecutive = [same(x.k, y.k) and torch.equal(x.feasible, y.feasible) for x, y in zip(graphed, eager_r)]
+    assert all(consecutive), f"graphs: consecutive solves against eager {consecutive}"
+    assert not same(graphed[0].k, graphed[1].k), "graphs: the two world sets gave the same plans"
+    # batch-1 latency, eager and graph: plan()'s steps, with the solver's
+    # route chosen
+    b8 = obstacle_bucket(probs8.masks[0])
+    z1 = torch.as_tensor(probs8.zonos[0][None, :b8], dtype=f32, device=dev)
+    m1 = torch.as_tensor(probs8.masks[0][None, :b8], device=dev)
+    rest = np.zeros((1, n))
+
+    def plan1(i, eager):
+        prob1 = pl.build_probs(probs8.q0[i][None], rest, rest, z1, m1, cull=False)
+        return pl.solve(prob1, probs8.q0[i][None] + 0.05, eager=eager)
+
+    lat = {}
+    for eager in (True, False):
+        runs = [run(lambda i=i: plan1(i, eager)) for i in range(4)]
+        lat[eager] = {"median_ms": statistics.median(r[1] for r in runs[1:]) * 1e3,
+                      "runs_ms": [r[1] * 1e3 for r in runs], "capture_ms": runs[-1][3]}
+    emit({"phase": "graphs", "path": "consecutive_world_sets", "sets": 2, "equal_to_eager": consecutive,
+          "latency_batch1": {"eager": lat[True], "graph": lat[False]}})
+    del graphed, eager_r, sets
+
+    # the RK4 step: 200 steps of every controller, f32 and f64
+    sim = dataclasses.replace(SimConfig(), t_move=200 * SimConfig().plant_dt)
+    rng = np.random.default_rng(0)
+    nw = min(16, B)
+    traj = TrajParams(probs8.q0[:nw], probs8.qd0[:nw], probs8.qdd0[:nw],
+                      rng.uniform(-1, 1, (nw, n)) * cfg.k_range, np.zeros(nw))
+    scale = rng.uniform(0.97, 1.03, (nw, spec.n_joints))
+    roll_rows = []
+    for dtype in (f32, f64):
+        for ctrl in CONTROLLERS:
+            outs, secs, caps = {}, {}, {}
+            for eager in (True, False):
+                outs[eager], secs[eager], _, caps[eager] = run(lambda: rollout(
+                    spec, sim, traj.q0, traj.qd0, traj, TrueParams(scale, scale), controller=ctrl,
+                    device=dev, dtype=dtype, eager=eager))
+            (qa, qda, la), (qg, qdg, lg) = outs[True], outs[False]
+            equal = same(qa, qg) and same(qda, qdg) and all(same(x, y) for x, y in zip(la, lg))
+            q_diff = float((qa - qg).abs().max())
+            assert equal or q_diff <= (1e-9 if dtype == f64 else 1e-6), \
+                f"graphs rollout {ctrl} {dtype}: |q_end graph - eager| = {q_diff}"
+            row = {"controller": ctrl, "dtype": str(dtype)[6:], "worlds": nw, "steps": 200,
+                   "eager_ms_per_step": secs[True] / 200 * 1e3, "graph_ms_per_step": secs[False] / 200 * 1e3,
+                   "capture_ms": caps[False], "bits_equal": equal, "max_abs_q_end_diff": q_diff}
+            roll_rows.append(row)
+            emit({"phase": "graphs", "path": "rollout", **row})
+    with open(os.path.join(out_dir, "graphs.json"), "w") as f:
+        json.dump({"plan_batch": plan_rows, "latency_batch1": lat, "rollout": roll_rows}, f, indent=1)
+
+
+def entry_point_phases(torch, dev, out_dir, sweep_argv=(), example_argv=()):
+    """Phases 19-20: the controller sweep held to
+    results/r4_controller_sweep.json, and the simple example's full
+    episode, each through its entry point.  Each path resets the launch
+    counts just before it and reads them just after.  ``dev`` and the two
+    argument lists exist to rehearse the phases at a small size on the
+    CPU."""
+    from armour_tpu_torch import compare_controllers, simple_example
+    from armour_tpu_torch.collision import kernels
+    from armour_tpu_torch.config import PlannerConfig
+
+    cfg = PlannerConfig()
+    main_name = "fused_collision_value_jac_multi"
+    zero = {k.__name__: 0 for k in kernels.KERNELS}
+    passes = cfg.nlp_outer_iters * cfg.nlp_inner_iters + 1
+
+    def run(fn):
+        """(result, seconds, launches) of fn()."""
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, kernels.launch_counts()
+
+    # ---- 19. controller_sweep: the full sweep, held to the committed table ----
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "results", "r4_controller_sweep.json")) as f:
+        committed = {(r["controller"], r["uncertainty"]): r for r in json.load(f)["rows"]}
+    sweep_out = os.path.join(out_dir, "controller_sweep.json")
+    table, seconds, counts = run(lambda: compare_controllers.main(["--out", sweep_out, "--device", str(dev),
+                                                                   *sweep_argv]))
+    assert counts == zero, counts
+    worst = 0.0
+    for row in table["rows"]:
+        ref = committed[(row["controller"], row["uncertainty"])]
+        assert row["within_ultimate_bound"] == ref["within_ultimate_bound"], (row, ref)
+        for k in ("max_pos_err", "mean_pos_err", "max_vel_err"):
+            worst = max(worst, abs(row[k] - ref[k]) / abs(ref[k]))
+    # the tolerance tests/test_torch_compare_controllers.py states
+    assert worst <= SWEEP_RTOL, f"controller_sweep: rows differ from the committed table by {worst}"
+    emit({"phase": "controller_sweep", "rows": len(table["rows"]), "seconds": seconds,
+          "flags_equal": True, "max_rel_err": worst, "rtol": SWEEP_RTOL,
+          "outside_bound": sorted(f"{r['controller']}@{r['uncertainty']:.0%}" for r in table["rows"]
+                                  if not r["within_ultimate_bound"])})
+
+    # ---- 20. simple_example: the full episode through its entry point ----
+    res, seconds, counts = run(lambda: simple_example.main(
+        ["--out-dir", os.path.join(out_dir, "simple_example"), "--device", str(dev), *example_argv]))
+    assert res["goal_reached"] and not res["collision"], res
+    assert counts == dict(zero, **{main_name: passes * res["iterations"]}), counts
+    emit({"phase": "simple_example", "seconds": seconds, "launches": counts,
+          **{k: v for k, v in res.items() if k not in ("npz", "csv")}})
+
+
 def main() -> int:
     import torch
 
@@ -883,6 +1114,7 @@ def main() -> int:
     from armour_tpu_torch.robots.kinova import kinova_gen3_spec
     from armour_tpu_torch.sim.agent import TrajParams, TrueParams, rollout
     from armour_tpu_torch.sim.world import arm_collision_check
+    from armour_tpu_torch.utils.graphs import CapturedStep
 
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -1091,7 +1323,7 @@ def main() -> int:
         assert np.all(np.isfinite(k[feas])) and np.all(np.isnan(k[~feas]))
         assert np.all(np.abs(k[feas]) <= 1.0)
         sec = statistics.median(secs)
-        emit({"phase": "main_path", "point": label, "batch": B,
+        emit({"phase": "main_path", "point": label, "batch": B, "capture_ms": CapturedStep.last_capture_ms,
               "T": cfg.num_time_steps, "seconds_per_batch": sec, "seconds_runs": secs,
               "plans_per_s": B / sec, "feasible_fraction": float(feas.mean()),
               "bucket": int(prob.hp.dpos.shape[-2]), "launches_per_plan_batch": deltas[-1],
@@ -1243,6 +1475,7 @@ def main() -> int:
     rollout(spec, warm, probs8.q0, probs8.qd0, traj, true, **track_kw)      # warm-up, 10 steps
     t_roll, (q_end, qd_end, log) = wall(
         torch, lambda: rollout(spec, sim, probs8.q0, probs8.qd0, traj, true, **track_kw), 1)
+    capture_ms = CapturedStep.last_capture_ms
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t_traced, _ = wall(torch, lambda: rollout(spec, warm, probs8.q0, probs8.qd0, traj, true,
@@ -1268,7 +1501,7 @@ def main() -> int:
     assert not bool(hits[feas8].any()), "track: a feasible world's executed motion hits an obstacle"
     emit({"phase": "track", "batch": B, "steps": n_steps, "plant_dt": sim.plant_dt,
           "controller": "robust", "dtype": "float32", "seconds_per_rollout": t_roll,
-          "ms_per_rk4_step": t_roll / n_steps * 1e3,
+          "ms_per_rk4_step": t_roll / n_steps * 1e3, "capture_ms": capture_ms,
           "kernel_launches_per_step": len(dev_events) / 10,
           "host_tensor_calls_per_step": (calls[1] - calls[0]) / 10,
           "traced_10_steps": {"wall_s": t_traced, "device_busy_s": busy_s,
@@ -1350,6 +1583,12 @@ def main() -> int:
     # ---- 15-17. the reference-schema export, the figures, the grasp example ----
     torch.cuda.empty_cache()
     tool_rows = tool_phases(torch, dev, check_and_time, rows, out_dir)
+
+    # ---- 18-20. graphs against eager, the controller sweep, the simple example ----
+    torch.cuda.empty_cache()
+    graph_phases(torch, dev, probs8, problem_set(cfg, B, n_obs=40, seed=7, device=dev), out_dir)
+    torch.cuda.empty_cache()
+    entry_point_phases(torch, dev, out_dir)
 
     # ---- tail ------------------------------------------------------------
     order = ("fused_collision_value_jac_multi", "fused_collision_values_multi",

@@ -1,0 +1,161 @@
+"""The CUDA graphs of the solver iteration and of the RK4 step against the
+same steps run op by op, on the card.
+
+Runs only where a CUDA device is present (marker ``cuda``; elsewhere each
+test skips).  This file imports no JAX, so it runs on a machine without it:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_graphs_cuda.py -q
+
+Graph and eager run the same kernels on the same inputs, so every result
+is held to the bit (k, max_violation and the rollout's states and log as
+bit patterns, NaN where both are NaN; feasible equal).  The collision
+kernels' launch counters count what runs: a capture adds nothing, each
+replay adds what it captured, so a graphed ``plan_batch`` still counts
+exactly one launch per constraint pass.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from armour_tpu_torch.collision import kernels
+from armour_tpu_torch.config import GraspConfig, PlannerConfig, SimConfig
+from armour_tpu_torch.planner.armour import ArmourPlanner
+from armour_tpu_torch.planner.rotatotope import rotatotope_planner
+from armour_tpu_torch.problems import Q_HOME, problem_set
+from armour_tpu_torch.robots.kinova import kinova_gen3_spec
+from armour_tpu_torch.sim.agent import CONTROLLERS, TrajParams, TrueParams, rollout
+from armour_tpu_torch.utils.graphs import CapturedStep
+
+pytestmark = pytest.mark.cuda
+
+SPEC = kinova_gen3_spec()
+CFG = PlannerConfig(num_time_steps=64)
+B = 32
+MAIN = "fused_collision_value_jac_multi"
+PASSES = CFG.nlp_outer_iters * CFG.nlp_inner_iters + 1
+Q_SI = (0.0, 0.5, 0.0, -0.5, 0.0, 0.5, 0.0)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run on the card with "
+                    "python -m pytest --noconftest -m cuda tests/test_torch_graphs_cuda.py")
+    return torch.device("cuda")
+
+
+def _bits(x):
+    x = x.detach().cpu().contiguous()
+    if not x.is_floating_point():
+        return x
+    return x.view({torch.float64: torch.int64, torch.float32: torch.int32}[x.dtype])
+
+
+def _same(a, b):
+    return torch.equal(_bits(a), _bits(b))
+
+
+def _planner(mode, device, dtype=torch.float32):
+    kw = {"orig": dict(traj_type="orig"),
+          "grasp": dict(grasp=GraspConfig(object_mass=0.2, u_s=0.6, surf_rad=0.03)),
+          "bernstein+si": dict(self_intersection=True)}.get(mode, {})
+    cfg = {"12starts": dataclasses.replace(CFG, nlp_num_starts=12),
+           "smooth": dataclasses.replace(CFG, smooth_collision_tau=1e-3)}.get(mode, CFG)
+    if mode == "rotatotope":
+        return rotatotope_planner(SPEC, cfg, dtype, device=device)
+    return ArmourPlanner(SPEC, cfg, dtype, device=device, **kw)
+
+
+def _worlds(mode, n_obs=8, seed=0):
+    if mode == "grasp":
+        q0 = np.array([0.0, -0.5, 0.0, -2.0, 0.0, -0.6, 0.0]) + \
+            np.random.default_rng(0).uniform(-0.05, 0.05, (B, 7))
+        zonos = np.zeros((B, CFG.max_obstacles, 4, 3))
+        zonos[:, 0, 0], zonos[:, 0, 1:] = 5.0, 0.05 * np.eye(3)
+        masks = np.zeros((B, CFG.max_obstacles), bool)
+        masks[:, 0] = True
+        z = np.zeros((B, 7))
+        return q0, z, z, q0 + 0.3 * CFG.k_range, zonos, masks
+    p = problem_set(CFG, B, n_obs=n_obs, seed=seed, device="cuda",
+                    q_center=Q_SI if mode == "bernstein+si" else Q_HOME)
+    if mode == "bernstein+si":
+        p = p._replace(qd0=np.zeros_like(p.q0), qdd0=np.zeros_like(p.q0))
+    return tuple(p)
+
+
+def _plan_both(pl, args, k_rand):
+    out = {}
+    for eager in (True, False):
+        kernels.reset_launch_counts()
+        out[eager] = (pl.plan_batch(*args, k_rand=k_rand, eager=eager), kernels.launch_counts())
+        torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("mode", ["default", "40obs", "orig", "12starts", "smooth", "grasp",
+                                  "bernstein+si", "rotatotope"])
+def test_graphed_plan_batch_equals_eager_to_the_bit(card, mode):
+    pl = _planner(mode, card)
+    args = _worlds(mode, *((40, 7) if mode == "40obs" else ()))
+    k_rand = torch.as_tensor(np.random.default_rng(1).uniform(
+        -0.6, 0.6, (B, max(pl.cfg.nlp_num_starts - 2, 1), 7)), dtype=torch.float32, device=card)
+    out = _plan_both(pl, args, k_rand)
+    (eager, c_eager), (graph, c_graph) = out[True], out[False]
+    assert torch.equal(eager.feasible, graph.feasible)
+    assert _same(eager.k, graph.k) and _same(eager.max_violation, graph.max_violation)
+    assert _same(eager.cost, graph.cost)
+    # a capture adds no launch; each replay adds what it captured
+    assert c_graph == c_eager
+    if mode == "smooth":
+        assert c_graph == {MAIN: 0, "fused_collision_values_multi": 1, "fused_collision_value_jac": 0}
+    else:
+        launches = PASSES * (2 if mode == "12starts" else 1)
+        assert c_graph == {MAIN: launches, "fused_collision_values_multi": 0,
+                           "fused_collision_value_jac": 0}
+
+
+def test_consecutive_solves_on_different_problems_each_equal_eager(card):
+    """A graph never outlives its solve: two different world sets planned
+    in a row each give the eager plan's bits."""
+    pl = _planner("default", card)
+    for seed in (0, 3):
+        args = problem_set(CFG, B, n_obs=8, seed=seed, device=card)
+        k_rand = pl.random_starts(B, torch.Generator(device=card).manual_seed(seed))
+        out = _plan_both(pl, args, k_rand)
+        assert torch.equal(out[True][0].feasible, out[False][0].feasible)
+        assert _same(out[True][0].k, out[False][0].k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("controller", CONTROLLERS)
+def test_graphed_rollout_equals_eager_to_the_bit(card, controller, dtype):
+    rng = np.random.default_rng(0)
+    n = 16
+    q0, qd0 = rng.uniform(-1, 1, (n, 7)), rng.uniform(-0.3, 0.3, (n, 7))
+    traj = TrajParams(q0, qd0, rng.uniform(-0.5, 0.5, (n, 7)),
+                      rng.uniform(-1, 1, (n, 7)) * CFG.k_range, np.zeros(n))
+    scale = rng.uniform(0.9, 1.1, (n, 7))
+    sim = dataclasses.replace(SimConfig(), t_move=200 * SimConfig().plant_dt)
+    noise = torch.as_tensor(rng.normal(scale=1e-4, size=(200, 2, n, 7)), dtype=dtype, device=card)
+    runs = [rollout(SPEC, sim, q0, qd0, traj, TrueParams(scale, scale), controller=controller,
+                    noise=noise, device=card, dtype=dtype, eager=eager) for eager in (True, False)]
+    (qa, qda, la), (qb, qdb, lb) = runs
+    assert _same(qa, qb) and _same(qda, qdb)
+    for name in la._fields:
+        assert _same(getattr(la, name), getattr(lb, name)), name
+    assert la.q.shape == (n, int(round(sim.t_move / sim.check_dt)), 7)
+
+
+def test_captured_step_replays_and_counts_what_runs(card):
+    x = torch.zeros(4, device=card)
+    step = CapturedStep(lambda: x.add_(1.0))
+    for _ in range(5):                     # a real first step, a capture, 4 replays
+        step()
+    assert step.graph is not None and float(x.sum()) == 20.0
+    # a step that synchronises with the host cannot be captured: it raises
+    bad = CapturedStep(lambda: float(x.sum()))
+    with pytest.raises(RuntimeError):
+        bad()

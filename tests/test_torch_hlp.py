@@ -169,8 +169,9 @@ def test_optimization_waypoint_matches_jax():
     """On these seeded cases the Newton systems of the small NLP stay
     solvable alike in both packages.  Where its cost Hessian is indefinite
     (the EE-distance cost over a k-box of +-1000 rad on the continuous
-    joints), the JAX package's clamped Cholesky and the port's library
-    factorisation give different steps (ROADMAP Queue 3)."""
+    joints), both clamp the pivots at 1e-30 (the JAX package in its
+    unrolled Cholesky, the port in its LDL^T elimination), but the rounding
+    of the two orders can still take different steps."""
     rng = np.random.default_rng(0)
     obs, jobs = _both(np.array([[-0.3, 0.1, 0.5]]), np.array([[0.15, 0.15, 0.15]]))
     for _ in range(2):
