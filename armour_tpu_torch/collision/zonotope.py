@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from armour_tpu_torch.collision import kernels
+from armour_tpu_torch.device import const
 
 # generator layout of a buffered obstacle: 3 obstacle + 3 link-shape +
 # 3 link-radius generators (CollisionChecking.h:6-7)
@@ -121,8 +122,8 @@ def buffer_obstacles(
     G = torch.cat([obs_G_b, link_G_b], dim=1)               # (B, 9, 3, L, O, T)
 
     # cross products of all generator pairs -> normals (B, 36, 3, L, O, T)
-    ga = G[:, _PAIR_A]
-    gb = G[:, _PAIR_B]
+    ga = G[:, const(_PAIR_A, device=G.device)]
+    gb = G[:, const(_PAIR_B, device=G.device)]
     C = torch.stack(
         [
             ga[:, :, 1] * gb[:, :, 2] - ga[:, :, 2] * gb[:, :, 1],

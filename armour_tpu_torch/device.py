@@ -20,6 +20,24 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+_CONSTS: dict = {}
+
+
+def const(x, dtype: torch.dtype | None = None, device=None) -> torch.Tensor:
+    """A tensor of host data ``x`` (a numpy array, list or number) on
+    ``device``, made once per (value, dtype, device) and kept.  Code that a
+    CUDA graph captures may read such constants but may not copy host data
+    to the card (the copy synchronises with the host): its first, op-by-op
+    run makes them here, and the capture finds them.  Callers must not
+    write into the result."""
+    a = np.asarray(x)
+    key = (a.dtype.str, a.shape, a.tobytes(), dtype, str(device))
+    t = _CONSTS.get(key)
+    if t is None:
+        t = _CONSTS[key] = torch.tensor(a, dtype=dtype, device=device)
+    return t
+
+
 def to_numpy(x) -> np.ndarray:
     """A host numpy array of ``x``: a tensor on any device, or array-like
     (``np.asarray`` alone raises on a CUDA tensor)."""

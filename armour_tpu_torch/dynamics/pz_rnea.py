@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from armour_tpu_torch.config import PlannerConfig
+from armour_tpu_torch.device import const
 from armour_tpu_torch.jrs.bezier import BezierJRS
 from armour_tpu_torch.ops.pz import (
     PZ,
@@ -50,7 +51,8 @@ class ArmReachableSets(NamedTuple):
 
 
 def _vec(x, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=like.dtype, device=like.device)
+    """A robot constant in the dtype and on the device of ``like``."""
+    return const(x, like.dtype, like.device)
 
 
 def _link_zono_pz(spec: RobotSpec, i: int, like: torch.Tensor) -> PZ:
@@ -97,8 +99,7 @@ def _pz_rnea_forward(spec: RobotSpec, jrs: BezierJRS):
         return PZ.const(like.new_zeros(bt + (3,)), nval=1)
 
     w, w_aux, wdot = zero(), zero(), zero()
-    acc0 = like.new_zeros(bt + (3,))
-    acc0[..., 2] = spec.gravity
+    acc0 = like.new_zeros(bt + (3,)) + _vec([0.0, 0.0, spec.gravity], like)
     acc = PZ.const(acc0, nval=1)
 
     ws, w_auxs, wdots, accs = [], [], [], []

@@ -24,6 +24,7 @@ import math
 import torch
 
 from armour_tpu_torch.config import PlannerConfig
+from armour_tpu_torch.device import const
 from armour_tpu_torch.jrs.bezier import cos_sin_pz_terms
 from armour_tpu_torch.ops.pz import PZ, pz_transpose, rot_from_cos_sin
 from armour_tpu_torch.robots.spec import RobotSpec
@@ -117,7 +118,7 @@ def make_armtd_jrs(spec: RobotSpec, cfg: PlannerConfig, q0: torch.Tensor,
         R_list.append(R_i)
         Rt_list.append(pz_transpose(R_i))
     for i in range(nf, spec.n_joints):
-        Rf = PZ.const(torch.as_tensor(fixed[i], dtype=dtype, device=dev).expand(bt + (3, 3)), nval=2)
+        Rf = PZ.const(const(fixed[i], dtype, dev).expand(bt + (3, 3)), nval=2)
         R_list.append(Rf)
         Rt_list.append(pz_transpose(Rf))
     R_list.append(PZ.const(torch.eye(3, dtype=dtype, device=dev).expand(bt + (3, 3)), nval=2))

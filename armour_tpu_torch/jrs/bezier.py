@@ -24,6 +24,7 @@ import math
 import torch
 
 from armour_tpu_torch.config import PlannerConfig
+from armour_tpu_torch.device import const
 from armour_tpu_torch.ops.interval import Interval, icos, isin
 from armour_tpu_torch.ops.pz import PZ, pz_transpose, rot_from_cos_sin
 from armour_tpu_torch.robots.spec import RobotSpec
@@ -301,8 +302,8 @@ def make_bezier_jrs(
 
     t_lb = Bdd(s_lb)
     t_ub = Bdd(s_ub)
-    bmax = Bdd(torch.tensor(_QDD_K_DEP_MAXIMA, dtype=dtype, device=dev))
-    bmin = Bdd(torch.tensor(_QDD_K_DEP_MINIMA, dtype=dtype, device=dev))
+    bmax = Bdd(const(_QDD_K_DEP_MAXIMA, dtype, dev))
+    bmin = Bdd(const(_QDD_K_DEP_MINIMA, dtype, dev))
     lo_mono = torch.minimum(t_lb, t_ub)
     hi_mono = torch.maximum(t_lb, t_ub)
     has_max = (s_lb <= _QDD_K_DEP_MAXIMA) & (_QDD_K_DEP_MAXIMA < s_ub)
@@ -343,7 +344,7 @@ def make_bezier_jrs(
 
     # fixed joints at the end of the chain (Trajectory.cu:247-251)
     for i in range(nf, spec.n_joints):
-        Rf = PZ.const(torch.as_tensor(fixed[i], dtype=dtype, device=dev).expand(bt + (3, 3)), nval=2)
+        Rf = PZ.const(const(fixed[i], dtype, dev).expand(bt + (3, 3)), nval=2)
         R_list.append(Rf)
         Rt_list.append(pz_transpose(Rf))
 

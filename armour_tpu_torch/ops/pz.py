@@ -22,6 +22,7 @@ from typing import Sequence
 
 import numpy as np
 import torch
+from armour_tpu_torch.device import const
 
 # variable index space: 0..n_factors-1 are trajectory parameters k_i;
 # SHAPE_X.. are the reserved link-shape generator variables that must
@@ -57,6 +58,14 @@ def _keep(key: MonKey, max_deg: int) -> bool:
     return _k_degree(key) <= max_deg and _shape_degree(key) <= 1
 
 
+def _like(x, c: torch.Tensor) -> torch.Tensor:
+    """``x`` in the dtype and on the device of ``c``; host data through
+    ``device.const``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype=c.dtype, device=c.device)
+    return const(x, c.dtype, c.device)
+
+
 @functools.lru_cache(maxsize=None)
 def _positions(keys: tuple, basis: tuple, device: torch.device) -> torch.Tensor:
     """Index of every key of ``keys`` in ``basis``, as a device tensor."""
@@ -88,7 +97,7 @@ class PZ:
     def const(c: torch.Tensor, nval: int | None = None, r=None) -> "PZ":
         if nval is None:
             nval = c.ndim
-        r_arr = torch.zeros_like(c) if r is None else torch.as_tensor(r, dtype=c.dtype, device=c.device).expand(c.shape)
+        r_arr = torch.zeros_like(c) if r is None else _like(r, c).expand(c.shape)
         return PZ(c, c.new_zeros((0,) + c.shape), r_arr, (), nval)
 
     @staticmethod
@@ -100,9 +109,9 @@ class PZ:
         merged: dict[MonKey, torch.Tensor] = {}
         for key, g in zip(keys, coeffs):
             key = tuple(sorted((v, e) for v, e in key if e > 0))
-            g = torch.as_tensor(g, dtype=c.dtype, device=c.device).expand(c.shape)
+            g = _like(g, c).expand(c.shape)
             merged[key] = merged[key] + g if key in merged else g
-        r_arr = torch.zeros_like(c) if r is None else torch.as_tensor(r, dtype=c.dtype, device=c.device).expand(c.shape)
+        r_arr = torch.zeros_like(c) if r is None else _like(r, c).expand(c.shape)
         if () in merged:  # constant monomial folds into the center
             c = c + merged.pop(())
         basis = tuple(sorted(merged.keys()))
@@ -490,7 +499,7 @@ def rot_from_cos_sin(cos_pz: PZ, sin_pz: PZ, axis: int, fixed_rot: np.ndarray) -
     r = embed(cos_pz.r, sin_pz.r, False)
 
     R_axis = PZ.from_gens(c, keys, coeffs, r=r, nval=2)
-    F = PZ.const(torch.as_tensor(fixed_rot, dtype=c.dtype, device=c.device), nval=2)
+    F = PZ.const(_like(fixed_rot, c), nval=2)
     return pz_matmat(F, R_axis)
 
 

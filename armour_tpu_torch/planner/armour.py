@@ -35,7 +35,7 @@ from armour_tpu_torch.collision.zonotope import (
     smooth_collision_constraints_with_jac,
 )
 from armour_tpu_torch.config import GraspConfig, PlannerConfig
-from armour_tpu_torch.device import resolve_device
+from armour_tpu_torch.device import const, resolve_device
 from armour_tpu_torch.dynamics.pz_rnea import build_reachable_sets
 from armour_tpu_torch.jrs.armtd import (
     armtd_position_extrema,
@@ -58,6 +58,7 @@ from armour_tpu_torch.planner.rotatotope import (
     self_intersection_with_jac_multi,
 )
 from armour_tpu_torch.robots.spec import RobotSpec
+from armour_tpu_torch.utils.graphs import ProgramCache, release, stepper
 
 
 def wrap_to_pi(x):
@@ -182,6 +183,10 @@ class ArmourPlanner:
     def _t(self, x, dtype=None) -> torch.Tensor:
         return torch.as_tensor(x, dtype=dtype or self.dtype, device=self.device)
 
+    def _const(self, x, dtype=None) -> torch.Tensor:
+        """A constant of the robot or the configuration (`device.const`)."""
+        return const(x, dtype or self.dtype, self.device)
+
     # -- build ------------------------------------------------------------
     def reachable_sets(self, q0, qd0, qdd0):
         """Obstacle-independent phase (`armour.py:264-316`): JRS ->
@@ -292,17 +297,17 @@ class ArmourPlanner:
         nf = spec.n_factors
         B = prob.q0.shape[0]
         q_des = self._t(q_des)
-        t_lim = self._t(spec.torque_limits)
+        t_lim = self._const(spec.torque_limits)
         # ARMTD mode carries no tracking-error sets (`armour.py:362-363`)
         qe = 0.0 if armtd else spec.qe
         qde = 0.0 if armtd else spec.qde
-        pos_lb = self._t(spec.pos_limits_lb + qe)
-        pos_ub = self._t(spec.pos_limits_ub - qe)
-        vel_lb = self._t(-spec.speed_limits + qde)
-        vel_ub = self._t(spec.speed_limits - qde)
-        cont = torch.as_tensor(spec.continuous_joints, device=dev)
+        pos_lb = self._const(spec.pos_limits_lb + qe)
+        pos_ub = self._const(spec.pos_limits_ub - qe)
+        vel_lb = self._const(-spec.speed_limits + qde)
+        vel_ub = self._const(spec.speed_limits - qde)
+        cont = const(spec.continuous_joints, device=dev)
         s_plan = cfg.t_plan / cfg.duration
-        t_plan = self._t(cfg.t_plan)     # a device tensor: the solver's graph makes none
+        t_plan = self._const(cfg.t_plan)     # a device tensor: the solver's graph makes none
         # per-world data broadcast against K (..., B, S, n)
         q0b, qd0b = prob.q0[:, None], prob.qd0[:, None]
         Tqd0b, TTqdd0b = prob.Tqd0[:, None], prob.TTqdd0[:, None]
@@ -369,7 +374,7 @@ class ArmourPlanner:
 
     def solve(self, prob: ProblemData, q_des, k_rand=None, k_warm=None,
               generator: torch.Generator | None = None, collision_group=None,
-              eager: bool = False) -> PlanResult:
+              eager: bool = False, keep: dict | None = None) -> PlanResult:
         """NLP phase: constraint closures over a built problem -> multi-start
         ALM -> strict re-verification (`armour.py:347-607`): fused with the
         solver's carried values in hard-max mode, an explicit pass over the
@@ -383,11 +388,15 @@ class ArmourPlanner:
         all-gathered over the group along the obstacle axis, so every rank
         sees the unsharded constraint vector.  Every rank of the group must
         be given the same starts.  The gather is a collective that the
-        graph does not capture, so a sharded solve runs op by op."""
+        graph does not capture, so a sharded solve runs op by op.
+
+        ``keep``: the solver's state and graph across calls of one shape
+        (``solve_box_alm_multi``); ``prob``, ``q_des`` and the starts must
+        then be the same tensors in every call (``PlanProgram``)."""
         spec, cfg, dtype, dev = self.spec, self._cfg, self.dtype, self.device
         nf = spec.n_factors
         B = prob.q0.shape[0]
-        t_lim = self._t(spec.torque_limits)
+        t_lim = self._const(spec.torque_limits)
         t_rad = prob.t_rad[:, None]                              # (B, 1, T, nf)
         f_fn, pv_fn, cj_multi = self.nlp_functions(prob, q_des, collision_group)
 
@@ -401,7 +410,7 @@ class ArmourPlanner:
 
         sol = solve_box_alm_multi(f_fn, cj_multi, K0, outer_iters=cfg.nlp_outer_iters,
                                   inner_iters=cfg.nlp_inner_iters, separable_cost=True,
-                                  eager=eager or collision_group is not None)
+                                  eager=eager or collision_group is not None, keep=keep)
 
         pool = torch.cat([sol.k, sol.k_feas, K0[:, :2]], dim=1)   # (B, 2S+2, n)
         if cfg.smooth_collision_tau == 0.0:
@@ -482,17 +491,146 @@ class ArmourPlanner:
                           eager=eager)
 
     def plan(self, q0, qd0, qdd0, q_des, obstacles: ObstacleSet, k_rand=None, k_warm=None,
-             generator: torch.Generator | None = None) -> PlanResult:
+             generator: torch.Generator | None = None, eager: bool = False) -> PlanResult:
         """Plan one world (no culling, as the reference's single-plan
-        program): obstacles.zonos (cap, 4, 3), obstacles.mask (cap,)."""
-        b = obstacle_bucket(obstacles.mask)
-        zonos = self._t(obstacles.zonos)[None, :b]
-        masks = self._t(obstacles.mask, torch.bool)[None, :b]
-        probs = self.build_probs(self._t(q0)[None], self._t(qd0)[None], self._t(qdd0)[None],
-                                 zonos, masks, cull=False)
-        res = self.solve(
-            probs, self._t(q_des)[None],
-            k_rand=None if k_rand is None else self._t(k_rand)[None],
-            k_warm=None if k_warm is None else self._t(k_warm)[None],
-            generator=generator)
+        program): obstacles.zonos (cap, 4, 3), obstacles.mask (cap,).
+
+        The plan runs through a ``PlanProgram`` kept per shape key (the
+        obstacle bucket, computed here on the host, and the planner's
+        dtype, trajectory type, starts, T and mode switches), the
+        counterpart of the JAX package's ``jax.jit`` of its plan function
+        (`armour.py:108`): on a card its first call captures, every later
+        call replays.  The random starts are drawn here, outside the
+        program, as ``solve`` draws them.  ``eager=True`` builds and solves
+        op by op with no program, to hold the two against each other."""
+        b, args = self.plan_args(q0, qd0, qdd0, q_des, obstacles, k_rand, k_warm, generator)
+        if eager:
+            res = self.plan_fixed(*args, eager=True)
+        else:
+            res = self.programs.run(self.plan_key(b), lambda: PlanProgram(self, b), *args)
         return PlanResult(*(x[0] for x in res))
+
+    def plan_args(self, q0, qd0, qdd0, q_des, obstacles: ObstacleSet, k_rand=None, k_warm=None,
+                  generator: torch.Generator | None = None):
+        """(bucket, the arguments of ``plan_fixed`` and of a ``PlanProgram``)
+        of one world: a batch of 1 at its obstacle bucket, the starts drawn."""
+        b = obstacle_bucket(obstacles.mask)
+        q0, qd0, qdd0, q_des = (self._t(x)[None] for x in (q0, qd0, qdd0, q_des))
+        return b, (q0, qd0, qdd0, q_des,
+                   self._t(obstacles.zonos)[None, :b], self._t(obstacles.mask, torch.bool)[None, :b],
+                   self.random_starts(1, generator) if k_rand is None else self._t(k_rand)[None],
+                   torch.zeros_like(q0) if k_warm is None else self._t(k_warm)[None])
+
+    def plan_key(self, bucket: int) -> tuple:
+        """The shape key of ``plan``'s program at an obstacle bucket."""
+        cfg = self._cfg
+        return (bucket, self.dtype, self.traj_type, cfg.nlp_num_starts, cfg.num_time_steps,
+                cfg.smooth_collision_tau, self.grasp, tuple(self._si_pairs))
+
+    @property
+    def programs(self) -> ProgramCache:
+        """The planner's ``plan`` programs, at most 4 shape keys."""
+        if "_programs" not in self.__dict__:
+            self._programs = ProgramCache(4)
+        return self._programs
+
+    def build_fixed(self, q0, qd0, qdd0, zonos, masks) -> ProblemData:
+        """``build_probs`` without culling at the bucket the caller chose
+        (the obstacle axis of ``zonos`` and ``masks``): no host round trip."""
+        prob, link_gens, _, _ = self.reachable_sets(q0, qd0, qdd0)
+        return prob._replace(hp=self.buffer(link_gens, zonos, masks))
+
+    def plan_fixed(self, q0, qd0, qdd0, q_des, zonos, masks, k_rand, k_warm,
+                   eager: bool = False) -> PlanResult:
+        """Build and solve composed with no host round trip (the JAX
+        ``_make_plan_fn``): a batch at the given bucket, no culling, the
+        starts given."""
+        prob = self.build_fixed(q0, qd0, qdd0, zonos, masks)
+        return self.solve(prob, q_des, k_rand=k_rand, k_warm=k_warm, eager=eager)
+
+
+def _tree(fn, *trees):
+    """``fn`` over the tensors of matching NamedTuples and dataclasses
+    (``ProblemData``), the rest of the first tree kept as it is."""
+    x = trees[0]
+    if isinstance(x, torch.Tensor):
+        return fn(*trees)
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_tree(fn, *fields) for fields in zip(*trees)))
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{f.name: _tree(fn, *(getattr(t, f.name) for t in trees))
+                                         for f in dataclasses.fields(x)})
+    return x
+
+
+class PlanProgram:
+    """``ArmourPlanner.plan`` of one shape key, kept: input tensors at fixed
+    addresses into which each call copies its arguments, the build and the
+    solve composed with no host round trip and no culling, and the result
+    copied out (a later call overwrites the program's own outputs).
+
+    On a card the first call runs op by op and captures, every later call
+    replays (`utils/graphs.py`).  ``whole=True`` captures the whole plan as
+    one graph, the solver's inner iteration recorded op by op inside it (a
+    graph cannot be captured inside another).  ``whole=False`` captures the
+    build as one graph and keeps the solver's inner-iteration graph across
+    calls (64 replays per plan), and runs the rest (the first bank pass,
+    the outer updates, the verification) op by op.  On the CPU both run
+    op by op.  ``steps`` are the program's steps (``CapturedStep`` objects
+    on a card)."""
+
+    def __init__(self, planner: ArmourPlanner, bucket: int, whole: bool = False):
+        self.whole = whole
+        spec, cfg, dt, dev = planner.spec, planner._cfg, planner.dtype, planner.device
+        nf = spec.n_factors
+        vec = lambda *shape: torch.zeros((1, *shape), dtype=dt, device=dev)  # noqa: E731
+        self.planner = planner
+        self.inputs = (vec(nf), vec(nf), vec(nf), vec(nf), vec(bucket, 4, 3),
+                       torch.zeros((1, bucket), dtype=torch.bool, device=dev),
+                       vec(max(cfg.nlp_num_starts - 2, 1), nf), vec(nf))
+        self.out = self.prob = None      # the whole plan's outputs; the built problem
+        self.keep = {}                   # the solver's kept state and step
+        if self.whole:
+
+            def plan():
+                res = planner.plan_fixed(*self.inputs, eager=True)
+                if self.out is None:
+                    self.out = _tree(torch.clone, res)
+                else:
+                    _tree(torch.Tensor.copy_, self.out, res)
+
+            self.first = stepper(plan, dev, eager=False)
+        else:
+
+            def build():
+                prob = planner.build_fixed(*self.inputs[:3], *self.inputs[4:6])
+                if self.prob is None:
+                    self.prob = _tree(torch.clone, prob)
+                else:
+                    _tree(torch.Tensor.copy_, self.prob, prob)
+
+            self.first = stepper(build, dev, eager=False)
+
+    @property
+    def steps(self) -> list:
+        """The whole plan's step, or the build's and the solver's kept one."""
+        if self.first is None:
+            return []
+        kept = [] if self.whole else self.keep.get("state", ())[-1:]
+        return [self.first, *kept]
+
+    def __call__(self, *args) -> PlanResult:
+        for buf, x in zip(self.inputs, args):
+            buf.copy_(x)
+        self.first()
+        if self.whole:
+            res = self.out
+        else:
+            q_des, k_rand, k_warm = self.inputs[3], *self.inputs[6:]
+            res = self.planner.solve(self.prob, q_des, k_rand=k_rand, k_warm=k_warm, keep=self.keep)
+        return _tree(torch.clone, res)
+
+    def release(self):
+        for step in self.steps:
+            release(step)
+        self.first, self.out, self.prob, self.keep, self.inputs = None, None, None, {}, ()

@@ -28,7 +28,7 @@ import torch
 from torch.func import grad, jvp, vmap
 
 from armour_tpu_torch.ops.linalg import spd_solve_small
-from armour_tpu_torch.utils.graphs import stepper
+from armour_tpu_torch.utils.graphs import release, stepper
 
 
 class ALMResult(NamedTuple):
@@ -212,6 +212,7 @@ def solve_box_alm_multi(
     ls_steps: int = 4,
     separable_cost: bool = False,
     eager: bool = False,
+    keep: dict | None = None,
 ) -> ALMResult:
     """Start-batched ALM: all S starts of all B worlds advance in lockstep,
     so the constraint bank is streamed ONCE per Gauss-Newton iteration.
@@ -226,9 +227,16 @@ def solve_box_alm_multi(
     first iteration of this call and replayed for the others: ``f_fn`` and
     ``cj_fn_multi`` must then neither synchronise with the host nor make
     tensors from host data, and the graph reads whatever they close over
-    by address, so it is never kept beyond the call.  ``eager=True`` runs
-    the iteration op by op instead, to hold the graph against it; the CPU
-    always runs op by op.
+    by address, so it is kept beyond the call only through ``keep``.
+    ``eager=True`` runs the iteration op by op instead, to hold the graph
+    against it or to record it inside another capture; the CPU always runs
+    op by op.
+
+    ``keep``: a dict that holds the iteration's state and its step across
+    calls of one shape.  An empty one is filled by this call; a filled one is
+    reused, its state reset in place, so that the graph the first call
+    captured is replayed by every later one.  The caller vouches that
+    ``f_fn`` and ``cj_fn_multi`` read the same tensors in every such call.
     """
     B, S, n = K0.shape
     dtype, dev = K0.dtype, K0.device
@@ -278,18 +286,27 @@ def solve_box_alm_multi(
 
     c0, J0 = cj_fn_multi(K0)                                      # init bank pass
     m = c0.shape[-1]
-    # the iteration's state, in buffers that every iteration updates in
-    # place (the graph's inputs and outputs)
-    K, c, Jt = K0.clone(), c0.clone(), J0.clone()
-    lam = torch.zeros((B, S, m), dtype=dtype, device=dev)
-    mu = torch.full((B, S), mu0, dtype=dtype, device=dev)
-    scale = torch.ones((B, S), dtype=dtype, device=dev)
-
-    def step():
-        for buf, new in zip((K, c, Jt, scale), inner_step(K, c, Jt, lam, mu, scale)):
+    if keep:
+        K, c, Jt, lam, mu, scale, iterate = keep["state"]
+        for buf, new in ((K, K0), (c, c0), (Jt, J0)):
             buf.copy_(new)
+        lam.zero_()
+        mu.fill_(mu0)
+    else:
+        # the iteration's state, in buffers that every iteration updates in
+        # place (the graph's inputs and outputs)
+        K, c, Jt = K0.clone(), c0.clone(), J0.clone()
+        lam = torch.zeros((B, S, m), dtype=dtype, device=dev)
+        mu = torch.full((B, S), mu0, dtype=dtype, device=dev)
+        scale = torch.ones((B, S), dtype=dtype, device=dev)
 
-    iterate = stepper(step, dev, eager)
+        def step():
+            for buf, new in zip((K, c, Jt, scale), inner_step(K, c, Jt, lam, mu, scale)):
+                buf.copy_(new)
+
+        iterate = stepper(step, dev, eager)
+        if keep is not None:
+            keep["state"] = (K, c, Jt, lam, mu, scale, iterate)
     prev_viol = torch.full((B, S), torch.inf, dtype=dtype, device=dev)
     K_feas = K0
     f_feas = torch.full((B, S), torch.inf, dtype=dtype, device=dev)
@@ -311,5 +328,7 @@ def solve_box_alm_multi(
         lam.copy_(torch.clamp(lam + mu[..., None] * c, min=0.0))
         mu.copy_(torch.where(viol > 0.25 * prev_viol, torch.clamp(mu * mu_growth, max=mu_max), mu))
         prev_viol = viol
+    if keep is None:
+        release(iterate)
     return ALMResult(k=K, max_violation=prev_viol, cost=f_fn(K), k_feas=K_feas,
                      found_feas=found, c=c, c0=c0, v_feas=v_feas)

@@ -36,6 +36,9 @@ def main(argv=None):
                          "through narrow passages")
     ap.add_argument("--f64", action="store_true")
     ap.add_argument("--out", default="", help="write the JSON summary here")
+    ap.add_argument("--progress-every", type=int, default=0,
+                    help="also write --out every N iterations, marked complete=false (0 = only "
+                         "at the end)")
     ap.add_argument("--device", default=None, help="torch device (default: the card)")
     args = ap.parse_args(argv)
 
@@ -49,17 +52,26 @@ def main(argv=None):
               for i in args.scenarios]
     starts, goals, zonos, masks = stack_worlds(worlds, dtype)
     gen = torch.Generator(device=runner.device).manual_seed(0)
-    s = run_batch_stepped(runner, starts, goals, zonos, masks, gen, verbose=True, hlp=args.hlp)
 
-    rows = []
-    for j, idx in enumerate(args.scenarios):
-        row = {"scenario": idx, "name": NAMES[idx],
-               **{k: bool(getattr(s, k)[j]) for k in FLAGS},
-               "iterations": int(s.iterations[j]), "n_feasible_plans": int(s.n_feasible_plans[j])}
-        rows.append(row)
+    def record(s):
+        return [{"scenario": idx, "name": NAMES[idx],
+                 **{k: bool(getattr(s, k)[j]) for k in FLAGS},
+                 "iterations": int(s.iterations[j]), "n_feasible_plans": int(s.n_feasible_plans[j])}
+                for j, idx in enumerate(args.scenarios)]
+
+    def progress(it, s):
+        if args.out and args.progress_every and (it + 1) % args.progress_every == 0:
+            with open(args.out, "w") as f:
+                json.dump({"collision_oracle": "mesh", "rows": record(s), "complete": False,
+                           "iterations_run": it + 1}, f, indent=2)
+
+    s = run_batch_stepped(runner, starts, goals, zonos, masks, gen, verbose=True, hlp=args.hlp,
+                          progress=progress)
+    rows = record(s)
+    for row in rows:
         marks = [m for m, k in (("GOAL", "goal_reached"), ("COLLISION", "collision"),
                                 ("stopped", "stopped")) if row[k]]
-        print(f"scenario {idx} ({NAMES[idx]:>14}): {' '.join(marks) or 'incomplete'}  "
+        print(f"scenario {row['scenario']} ({row['name']:>14}): {' '.join(marks) or 'incomplete'}  "
               f"iters={row['iterations']} plans={row['n_feasible_plans']}")
     out = {"collision_oracle": "mesh", "rows": rows}
     if args.out:

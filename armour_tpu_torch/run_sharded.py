@@ -43,6 +43,32 @@ def _sync(dev):
         torch.cuda.synchronize()
 
 
+def free_port() -> int:
+    """A free TCP port on 127.0.0.1 for the process group's rendezvous."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def spawn_ranks(fn, nprocs: int, args: tuple, timeout: float, name: str) -> bool:
+    """``fn(rank, *args)`` in ``nprocs`` spawned processes; False, with the
+    ranks killed, when they have not ended within ``timeout`` seconds.  A
+    rank that raises makes this raise."""
+    ctx = torch.multiprocessing.spawn(fn, args=args, nprocs=nprocs, join=False)
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                print(f"{name}: the ranks did not end within {timeout} s", file=sys.stderr)
+                return False
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    return True
+
+
 def _rank(rank, args, port, out_path):
     import torch.distributed as dist
 
@@ -134,25 +160,11 @@ def main(argv=None) -> int:
         from armour_tpu_torch.collision import kernels
 
         kernels.build()      # once, before the ranks load it
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
     with tempfile.TemporaryDirectory() as tmp:
         out_path = os.path.join(tmp, "rank0.json")
-        ctx = torch.multiprocessing.spawn(_rank, args=(args, port, out_path), nprocs=args.ranks,
-                                          join=False)
-        deadline = time.monotonic() + args.timeout
-        try:
-            while not ctx.join(timeout=5):
-                if time.monotonic() > deadline:
-                    print(f"run_sharded: the ranks did not end within {args.timeout} s",
-                          file=sys.stderr)
-                    return 1
-        finally:
-            for p in ctx.processes:
-                if p.is_alive():
-                    p.kill()
-                    p.join(10)
+        if not spawn_ranks(_rank, args.ranks, (args, free_port(), out_path), args.timeout,
+                           "run_sharded"):
+            return 1
         with open(out_path) as f:
             out = json.load(f)
     print(json.dumps(out), flush=True)

@@ -69,6 +69,9 @@ def main(argv=None):
     ap.add_argument("--stop-rescue", type=int, default=0,
                     help="SimConfig.stop_rescue_attempts (0 = the reference stop protocol)")
     ap.add_argument("--out", default="", help="write the JSON summary here")
+    ap.add_argument("--progress-every", type=int, default=0,
+                    help="also write --out every N iterations, marked complete=false, so that a "
+                         "run cut short leaves its record (0 = only at the end)")
     ap.add_argument("--device", default=None, help="torch device (default: the card)")
     args = ap.parse_args(argv)
 
@@ -83,42 +86,55 @@ def main(argv=None):
     starts, goals, zonos, masks = stack_worlds(worlds, dtype)
     gen = torch.Generator(device=runner.device).manual_seed(0)
 
+    def record(outs, wall):
+        """The JSON of the batches in ``outs``."""
+        merged = EpisodeSummary(*(None if xs[0] is None else torch.cat([x.cpu() for x in xs])
+                                  for xs in zip(*outs)))
+        d = summarize_episodes(merged, protocol=protocol_block(pcfg, scfg, args.hlp, dtype))
+        d["traj_type"] = args.traj_type
+        d["max_iterations"] = args.max_iterations
+        d["wall_seconds"] = round(wall, 2)
+        d["episodes_per_minute"] = round(len(merged.iterations) / wall * 60, 2)
+        d["device"] = str(runner.device) if runner.device.type != "cuda" else \
+            torch.cuda.get_device_name(runner.device)
+        # per-world rows, so that each outcome is diagnosable from the artifact
+        margins = {k: getattr(merged, k).numpy() for k in ("jl_overshoot", "ub_overshoot",
+                                                            "torque_overshoot")
+                   if getattr(merged, k) is not None}
+        d["worlds"] = [
+            dict(world=os.path.basename(files[i]),
+                 iterations=int(merged.iterations[i]),
+                 n_feasible_plans=int(merged.n_feasible_plans[i]),
+                 **{k: bool(getattr(merged, k)[i]) for k in FLAGS},
+                 **{k: round(float(v[i]), 6) for k, v in margins.items()})
+            for i in range(len(merged.iterations))
+        ]
+        return d
+
     B = args.batch or len(worlds)
     outs = []
     t0 = time.perf_counter()
+
+    def progress(it, s):
+        if args.out and args.progress_every and (it + 1) % args.progress_every == 0:
+            d = dict(record([*outs, s], time.perf_counter() - t0), complete=False,
+                     iterations_run=it + 1)
+            with open(args.out, "w") as f:
+                json.dump(d, f, indent=2)
+
     for i in range(0, len(worlds), B):
         sl = slice(i, min(i + B, len(worlds)))
         if args.driver == "stepped":
             s = run_batch_stepped(runner, starts[sl], goals[sl], zonos[sl], masks[sl], gen,
                                   verbose=True, collision_oracle=args.collision_oracle,
-                                  hlp=args.hlp)
+                                  hlp=args.hlp, progress=progress)
         else:
             s = runner.run_batch(starts[sl], goals[sl], zonos[sl], masks[sl], gen)
         outs.append(s)
         print(f"  batch {i // B}: {int(s.goal_reached.sum())} goals reached")
     wall = time.perf_counter() - t0
 
-    merged = EpisodeSummary(*(None if xs[0] is None else torch.cat([x.cpu() for x in xs])
-                              for xs in zip(*outs)))
-    d = summarize_episodes(merged, protocol=protocol_block(pcfg, scfg, args.hlp, dtype))
-    d["traj_type"] = args.traj_type
-    d["max_iterations"] = args.max_iterations
-    d["wall_seconds"] = round(wall, 2)
-    d["episodes_per_minute"] = round(len(worlds) / wall * 60, 2)
-    d["device"] = str(runner.device) if runner.device.type != "cuda" else \
-        torch.cuda.get_device_name(runner.device)
-    # per-world rows, so that each outcome is diagnosable from the artifact
-    margins = {k: getattr(merged, k).numpy() for k in ("jl_overshoot", "ub_overshoot",
-                                                        "torque_overshoot")
-               if getattr(merged, k) is not None}
-    d["worlds"] = [
-        dict(world=os.path.basename(files[i]),
-             iterations=int(merged.iterations[i]),
-             n_feasible_plans=int(merged.n_feasible_plans[i]),
-             **{k: bool(getattr(merged, k)[i]) for k in FLAGS},
-             **{k: round(float(v[i]), 6) for k, v in margins.items()})
-        for i in range(len(worlds))
-    ]
+    d = record(outs, wall)
     print(format_summary(d))
     print(f"wall: {wall:.1f}s ({d['episodes_per_minute']} episodes/min)")
     if args.out:

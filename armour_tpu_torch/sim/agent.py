@@ -43,7 +43,7 @@ from armour_tpu_torch.jrs.armtd import armtd_ref
 from armour_tpu_torch.jrs.bezier import bezier_ref
 from armour_tpu_torch.ops.linalg import spd_solve_small
 from armour_tpu_torch.robots.spec import RobotSpec
-from armour_tpu_torch.utils.graphs import stepper
+from armour_tpu_torch.utils.graphs import release, stepper
 
 CONTROLLERS = ("robust", "althoff", "nominal", "pid", "ilqr")
 
@@ -295,6 +295,7 @@ def rollout(
         if logged:
             hist.append((i * dt, q_i, qd_i, last["q_ref"].clone(), last["qd_ref"].clone(),
                          last["u"].clone()))
+    release(advance)
 
     log = RolloutLog(
         t=torch.tensor([h[0] for h in hist], dtype=dtype, device=dev),

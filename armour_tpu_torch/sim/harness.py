@@ -334,6 +334,7 @@ def run_batch_stepped(
     collision_oracle: str = "mesh",
     hlp: str = "straight",
     trace: list | None = None,
+    progress: Callable[[int, EpisodeSummary], None] | None = None,
 ) -> EpisodeSummary:
     """The battery driver: B episodes stepped from the host, one replan of
     every active world per iteration.  Semantics match
@@ -364,6 +365,8 @@ def run_batch_stepped(
     ``trace``: a list that receives one dict per iteration (wall split,
     buckets, feasible count, kernel launches, flagged and confirmed mesh
     hits); the phases are then timed to a device synchronise.
+    ``progress(it, summary)`` is called after every iteration with the
+    summary so far, so that a run cut short still leaves its record.
     """
     spec, pcfg, scfg, dtype = runner.spec, runner.plan_cfg, runner.sim_cfg, runner.dtype
     planner, dev = runner.planner, runner.device
@@ -566,6 +569,16 @@ def run_batch_stepped(
     overshoot = {k: np.full(B, -np.inf) for k in ("jl", "ub", "tor")}
     rescues = np.zeros(B, np.int32)
 
+    def summary():
+        return EpisodeSummary(
+            **{k: torch.as_tensor(v.copy()) for k, v in summ.items()},
+            iterations=torch.as_tensor(iters.copy()),
+            n_feasible_plans=torch.as_tensor(n_feas.copy()),
+            jl_overshoot=torch.as_tensor(overshoot["jl"]),
+            ub_overshoot=torch.as_tensor(overshoot["ub"]),
+            torque_overshoot=torch.as_tensor(overshoot["tor"]),
+        )
+
     for it in range(scfg.max_iterations):
         if done.all():
             break
@@ -754,12 +767,7 @@ def run_batch_stepped(
         if verbose:
             print(f"iter {it}: active={int(active.sum())} "
                   f"goals={int(summ['goal_reached'].sum())}")
+        if progress is not None:
+            progress(it, summary())
 
-    return EpisodeSummary(
-        **{k: torch.as_tensor(v) for k, v in summ.items()},
-        iterations=torch.as_tensor(iters),
-        n_feasible_plans=torch.as_tensor(n_feas),
-        jl_overshoot=torch.as_tensor(overshoot["jl"]),
-        ub_overshoot=torch.as_tensor(overshoot["ub"]),
-        torque_overshoot=torch.as_tensor(overshoot["tor"]),
-    )
+    return summary()

@@ -18,7 +18,12 @@ Phases (each prints one JSON line; any failure exits non-zero):
               at a slab whose rows are not 16-byte aligned (direct path)
   4. main     ArmourPlanner.plan_batch at B=128, T=128, 8 obstacles: time,
               feasibility and kernel launches per plan; then the 40-obstacle
-              point and the batch-1 latency; then the collision check of the
+              point; then latency_batch1: plan() through its program kept
+              per shape key, both designs (split: build graph + the solver's
+              inner graph kept; whole: one graph), first call and 5 replays
+              held to the eager plan to the bit with 65 launches each, the
+              bucket sequence 8 -> 16 -> 8 through the cache, and the main
+              kernel on the batch-1 bank; then the collision check of the
               returned plans (values_multi and single-start value_jac)
   5. modes    one plan_batch at the same width for traj_type="orig", with
               12 starts, for smooth collision (tau = 1e-3) and with grasp
@@ -92,6 +97,13 @@ Phases (each prints one JSON line; any failure exits non-zero):
 20. simple_example
               simple_example.main: the two-box episode at T=64, up to 30
               iterations; goal reached, no collision, 65 launches per plan
+21. armtd_comparison
+              run_armtd_comparison.main over assets/worlds, 2 iterations per
+              half: the JSON keys of results/r4_armtd_vs_armour.json (plus
+              device and protocol), 0 collisions, each half's launches
+22. bench_scaling
+              bench_scaling.main --production: the one-card NCCL row, its keys
+              those of results/r5_scaling_virtual8.json's rows
 The last lines are the kernel table as JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}.  Longer output goes to chiprun_out/.
 """
@@ -995,7 +1007,7 @@ def graph_phases(torch, dev, probs8, probs40, out_dir, T=128):
 
     lat = {}
     for eager in (True, False):
-        runs = [run(lambda i=i: plan1(i, eager)) for i in range(4)]
+        runs = [run(lambda i=i: plan1(i, eager)) for i in range(2)]
         lat[eager] = {"median_ms": statistics.median(r[1] for r in runs[1:]) * 1e3,
                       "runs_ms": [r[1] * 1e3 for r in runs], "capture_ms": runs[-1][3]}
     emit({"phase": "graphs", "path": "consecutive_world_sets", "sets": 2, "equal_to_eager": consecutive,
@@ -1029,6 +1041,133 @@ def graph_phases(torch, dev, probs8, probs40, out_dir, T=128):
             emit({"phase": "graphs", "path": "rollout", **row})
     with open(os.path.join(out_dir, "graphs.json"), "w") as f:
         json.dump({"plan_batch": plan_rows, "latency_batch1": lat, "rollout": roll_rows}, f, indent=1)
+
+
+def latency_phase(torch, dev, check_and_time, rows, probs8, probs40, n_replays=5, T=128):
+    """Phase 4b, latency_batch1: plan() through its program kept per shape
+    key.  For each design (``split``: the build graph and the solver's
+    inner-iteration graph kept across calls; ``whole``: the whole plan as
+    one graph) the first call (capture included) and ``n_replays`` replays
+    on other worlds of the same bucket; then, through ``plan`` and its
+    cache, the bucket sequence 8 -> 16 -> 8.  Every plan is held to the
+    eager ``plan`` (op by op, no program) to the bit (k, feasible,
+    max_violation), every replay to 65 main-kernel launches.  Then the main
+    kernel on the batch-1 bank against its plain version.  Each path resets
+    the launch counts just before it and reads them just after.  ``dev``,
+    ``n_replays`` and ``T`` exist to rehearse the phase at a small size on
+    the CPU (where both designs run op by op)."""
+    from armour_tpu_torch.collision import kernels
+    from armour_tpu_torch.collision.zonotope import ObstacleSet, kernel_layout
+    from armour_tpu_torch.config import PlannerConfig
+    from armour_tpu_torch.planner.armour import ArmourPlanner, PlanProgram
+    from armour_tpu_torch.robots.kinova import kinova_gen3_spec
+    from armour_tpu_torch.utils.graphs import CapturedStep
+
+    spec = kinova_gen3_spec()
+    cfg = PlannerConfig(num_time_steps=T)
+    f32 = torch.float32
+    main_name = "fused_collision_value_jac_multi"
+    passes = cfg.nlp_outer_iters * cfg.nlp_inner_iters + 1
+    on_card = torch.device(dev).type == "cuda"
+    pl = ArmourPlanner(spec, cfg, f32, device=dev)
+
+    def timed(fn):
+        """(result, ms, main-kernel launches) of fn()."""
+        if on_card:
+            torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        if on_card:
+            torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3, kernels.launch_counts()[main_name]
+
+    def bits(x):
+        x = x.detach().cpu().contiguous()
+        return x.view(torch.int32) if x.dtype == f32 else x
+
+    def equal(a, b):
+        return {f: torch.equal(bits(getattr(a, f)), bits(getattr(b, f)))
+                for f in ("k", "feasible", "max_violation")}
+
+    # worlds 0..n_replays of the 8-obstacle set (bucket 8), and one world of
+    # the 40-obstacle set with 12 live slots (bucket 16)
+    worlds = [(probs8.q0[i], probs8.qd0[i], probs8.qdd0[i], probs8.q_des[i],
+               ObstacleSet(probs8.zonos[i], probs8.masks[i])) for i in range(n_replays + 1)]
+    m16 = np.asarray(probs40.masks[0]).copy()
+    m16[12:] = False
+    worlds.append((probs40.q0[0], probs40.qd0[0], probs40.qdd0[0], probs40.q_des[0],
+                   ObstacleSet(probs40.zonos[0], m16)))
+    k_rand = [pl.random_starts(1, torch.Generator(device=dev).manual_seed(20 + i))[0]
+              for i in range(len(worlds))]
+    eager = [timed(lambda i=i: pl.plan(*worlds[i], k_rand=k_rand[i], eager=True))
+             for i in range(len(worlds))]
+    assert all(e[2] == passes for e in eager), [e[2] for e in eager]
+
+    def check(res, i, label):
+        eq = equal(res, eager[i][0])
+        assert all(eq.values()), f"latency_batch1 {label}: plan against eager {eq}"
+        return eq
+
+    designs = {}
+    for label, whole in (("split", False), ("whole", True)):
+        b, args0 = pl.plan_args(*worlds[0], k_rand=k_rand[0])
+        prog = PlanProgram(pl, b, whole=whole)
+        first, first_ms, n0 = timed(lambda: prog(*args0))
+        check(row0(first), 0, f"{label} first call")
+        replays = []
+        for i in range(1, n_replays + 1):
+            b_i, args = pl.plan_args(*worlds[i], k_rand=k_rand[i])
+            assert b_i == b, (b_i, b)
+            res, ms, n_launch = timed(lambda: prog(*args))
+            check(row0(res), i, f"{label} replay {i}")
+            assert n_launch == passes, f"latency_batch1 {label}: {n_launch} launches per replay"
+            replays.append(ms)
+        designs[label] = {
+            "first_call_ms": first_ms, "first_call_launches": n0,
+            "capture_ms": [s.capture_ms for s in prog.steps if isinstance(s, CapturedStep)],
+            "graphs": sum(isinstance(s, CapturedStep) for s in prog.steps),
+            "replay_median_ms": statistics.median(replays), "replay_runs_ms": replays,
+            "launches_per_replay": passes, "bits_equal": True}
+        prog.release()
+        del prog
+        if on_card:
+            torch.cuda.empty_cache()
+
+    # through plan() and its cache: buckets 8 -> 16 -> 8 (world 1 replays
+    # the program world 0 made, world 2 after the bucket change)
+    seq = []
+    for i, bucket in ((0, 8), (1, 8), (n_replays + 1, 16), (2, 8)):
+        res, ms, n_launch = timed(lambda i=i: pl.plan(*worlds[i], k_rand=k_rand[i]))
+        check(res, i, f"plan bucket {bucket}")
+        assert n_launch == passes, n_launch
+        seq.append({"world": i, "bucket": bucket, "ms": ms, "launches": n_launch})
+    cache = pl.programs.stats()
+    assert (cache["hits"], cache["misses"]) == (2, 2), cache
+    emit({"phase": "latency_batch1", "T": T, "dtype": "float32", "default_design": "split",
+          "median_ms": statistics.median(s["ms"] for s in seq if s["world"] in (1, 2)),
+          "designs": designs, "bucket_sequence": seq, "cache": cache,
+          "eager_ms": [e[1] for e in eager], "eager_median_ms": statistics.median(e[1] for e in eager)})
+
+    # the main kernel on the batch-1 bank of the program (B = 1, bucket 8)
+    _, args0 = pl.plan_args(*worlds[0], k_rand=k_rand[0])
+    prob = pl.build_fixed(*args0[:3], *args0[4:6])
+    hp = prob.hp
+    K = torch.as_tensor(np.random.default_rng(8).uniform(-0.9, 0.9, (1, cfg.nlp_num_starts, 7)),
+                        dtype=f32, device=dev)
+    c, dc = kernel_layout(*prob.links.slice_with_jac_multi(K)[::2])
+    name = "fused_collision_value_jac_multi[batch1]"
+    check_and_time(hp, f32, 2e-6, kernels.fused_collision_value_jac_multi,
+                   (hp.A, hp.dpos, hp.dneg, c, dc), True,
+                   kernels.tie_mask(hp.A, hp.dpos, hp.dneg, c, tol=1e-5), name, timed=True)
+    rows[name]["replaces"] = "armour_tpu/collision/pallas_kernel.py:166"
+    rows[name]["launches"] = seq[1]["launches"]
+    return name
+
+
+def row0(res):
+    """The world row of a PlanProgram's (1, ...) result, as plan() returns it."""
+    return type(res)(*(x[0] for x in res))
 
 
 def entry_point_phases(torch, dev, out_dir, sweep_argv=(), example_argv=()):
@@ -1086,6 +1225,70 @@ def entry_point_phases(torch, dev, out_dir, sweep_argv=(), example_argv=()):
     assert counts == dict(zero, **{main_name: passes * res["iterations"]}), counts
     emit({"phase": "simple_example", "seconds": seconds, "launches": counts,
           **{k: v for k, v in res.items() if k not in ("npz", "csv")}})
+
+
+def comparison_phases(torch, dev, out_dir, cmp_argv=(), scaling_argv=("--production",)):
+    """Phases 21-22: run_armtd_comparison over the 100 worlds of
+    assets/worlds, 2 iterations per half, each half's JSON keys those of
+    results/r4_armtd_vs_armour.json plus the port's device and protocol, 0
+    collisions, 65 main-kernel launches per iteration of each half; then
+    bench_scaling on this card's NCCL rank at the production shapes, its
+    rows' keys those of results/r5_scaling_virtual8.json.  Each half resets
+    the launch counts just before it and reads them just after (the
+    scaling rank is a process of its own).  ``cmp_argv`` and
+    ``scaling_argv`` exist to rehearse the phases at a small size on the
+    CPU."""
+    from armour_tpu_torch import bench_scaling, run_armtd_comparison
+    from armour_tpu_torch.collision import kernels
+    from armour_tpu_torch.config import PlannerConfig
+
+    cfg = PlannerConfig()
+    main_name = "fused_collision_value_jac_multi"
+    zero = {k.__name__: 0 for k in kernels.KERNELS}
+    passes = cfg.nlp_outer_iters * cfg.nlp_inner_iters + 1
+    on_card = torch.device(dev).type == "cuda"
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "results", "r4_armtd_vs_armour.json")) as f:
+        jax_file = json.load(f)
+    out = os.path.join(out_dir, "armtd_comparison.json")
+    if os.path.exists(out):
+        os.remove(out)
+    halves = {}
+    for half in ("armour", "armtd"):
+        if on_card:
+            torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        d = run_armtd_comparison.main(["--max-iterations", "2", "--out", out, "--device", str(dev),
+                                       "--halves", half, *cmp_argv])[half]
+        if on_card:
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        extra = set(d) ^ set(jax_file[half])
+        assert extra == {"device", "protocol"}, f"armtd_comparison {half}: keys differ by {sorted(extra)}"
+        assert d["collision"] == 0, f"armtd_comparison {half}: {d['collision']} collisions"
+        its = max(w["iterations"] for w in d["worlds"])
+        assert counts == dict(zero, **{main_name: passes * its}), f"armtd_comparison {half}: {counts}"
+        halves[half] = {"seconds": seconds, "launches": counts, "iterations": its,
+                        **{k: d[k] for k in ("n_worlds", "goal_reached", "collision", "torque_violation",
+                                             "joint_limit_violation", "ultimate_bound_violation",
+                                             "stopped_safely", "traj_type")}}
+    with open(out) as f:
+        assert sorted(json.load(f)) == ["armour", "armtd"]
+    emit({"phase": "armtd_comparison", "halves": halves, "keys_equal_jax_file": True,
+          "out": os.path.relpath(out, root)})
+
+    # ---- 22. bench_scaling: the one-card NCCL row ------------------------
+    with open(os.path.join(root, "results", "r5_scaling_virtual8.json")) as f:
+        row_keys = set(json.load(f)["rows"][0])
+    t0 = time.perf_counter()
+    table = bench_scaling.main(["--out", os.path.join(out_dir, "bench_scaling.json"), *scaling_argv])
+    seconds = time.perf_counter() - t0
+    assert table["rows"] and all(set(r) == row_keys for r in table["rows"]), table["rows"]
+    emit({"phase": "bench_scaling", "seconds": seconds, "rows": table["rows"],
+          "time_steps": table["time_steps"], "row_keys_equal_jax_file": True,
+          "device": table.get("device")})
 
 
 def main() -> int:
@@ -1341,14 +1544,7 @@ def main() -> int:
     _, _, counts40 = run_point(probs40, "40obs", reps=1)
     rows[wide_name]["launches"] = counts40[main_name]
 
-    q0_0 = probs8.q0[0]
-    obs1 = ObstacleSet(probs8.zonos[0], probs8.masks[0])
-    lat, _ = wall(torch, lambda: planner.plan(q0_0, np.zeros(7), np.zeros(7), q0_0 + 0.05, obs1), 1)
-    lats = [wall(torch, lambda i=i: planner.plan(probs8.q0[i], np.zeros(7), np.zeros(7),
-                                                 probs8.q0[i] + 0.05, obs1), 1)[0]
-            for i in range(3)]
-    emit({"phase": "latency_batch1", "median_ms": statistics.median(lats) * 1e3,
-          "runs_ms": [x * 1e3 for x in lats]})
+    batch1_row = latency_phase(torch, dev, check_and_time, rows, probs8, probs40)
 
     # the collision check of the returned plans: the user-level check path,
     # through the value-only and single-start kernels
@@ -1590,10 +1786,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     entry_point_phases(torch, dev, out_dir)
 
+    # ---- 21-22. the ARMOUR-ARMTD comparison, the scaling rows ------------
+    torch.cuda.empty_cache()
+    comparison_phases(torch, dev, out_dir)
+
     # ---- tail ------------------------------------------------------------
     order = ("fused_collision_value_jac_multi", "fused_collision_values_multi",
-             "fused_collision_value_jac", pool_name, many_name, wide_name, *ext_rows, battery_row,
-             *tool_rows)
+             "fused_collision_value_jac", pool_name, many_name, wide_name, batch1_row, *ext_rows,
+             battery_row, *tool_rows)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     table = []

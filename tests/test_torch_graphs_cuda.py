@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from armour_tpu_torch.collision import kernels
+from armour_tpu_torch.collision.zonotope import ObstacleSet
 from armour_tpu_torch.config import GraspConfig, PlannerConfig, SimConfig
 from armour_tpu_torch.planner.armour import ArmourPlanner
 from armour_tpu_torch.planner.rotatotope import rotatotope_planner
@@ -149,6 +150,93 @@ def test_graphed_rollout_equals_eager_to_the_bit(card, controller, dtype):
     assert la.q.shape == (n, int(round(sim.t_move / sim.check_dt)), 7)
 
 
+def _plan_worlds(mode, card):
+    """Four worlds of bucket 8, then world 1 with four far boxes in slots
+    8-11 (bucket 16), then world 2 again (bucket 8)."""
+    q0, qd0, qdd0, q_des, zonos, masks = _worlds(mode)
+    worlds = [(q0[i], qd0[i], qdd0[i], q_des[i], ObstacleSet(zonos[i], masks[i])) for i in range(4)]
+    z, m = np.array(zonos[1], copy=True), np.array(masks[1], copy=True)
+    z[8:12] = 0.0
+    z[8:12, 0] = 5.0
+    z[8:12, 1:] = 0.05 * np.eye(3)
+    m[8:12] = True
+    worlds.append((q0[1], qd0[1], qdd0[1], q_des[1], ObstacleSet(z, m)))
+    return worlds + [worlds[2]]
+
+
+@pytest.mark.parametrize("mode", ["default", "orig", "smooth", "grasp"])
+def test_cached_plan_equals_eager_plan_to_the_bit(card, mode):
+    """``plan`` through its program kept per shape key against the eager
+    ``plan`` (op by op, no program), across worlds and a bucket change; a
+    replay counts the launches that run."""
+    pl = _planner(mode, card)
+    if mode == "smooth":
+        expect = {MAIN: 0, "fused_collision_values_multi": 1, "fused_collision_value_jac": 0}
+    else:
+        expect = {MAIN: PASSES, "fused_collision_values_multi": 0, "fused_collision_value_jac": 0}
+    for i, world in enumerate(_plan_worlds(mode, card)):
+        k_rand = pl.random_starts(1, torch.Generator(device=card).manual_seed(i))[0]
+        ref = pl.plan(*world, k_rand=k_rand, eager=True)
+        kernels.reset_launch_counts()
+        got = pl.plan(*world, k_rand=k_rand)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts() == expect, i
+        assert bool(got.feasible) == bool(ref.feasible), i
+        assert _same(got.k, ref.k) and _same(got.max_violation, ref.max_violation), i
+        assert _same(got.cost, ref.cost) and _same(got.torque_radius, ref.torque_radius), i
+    stats = pl.programs.stats()
+    assert (stats["misses"], stats["hits"]) == (2, 4)
+    assert stats["captures"] == 4           # a build graph and an inner-iteration graph per key
+
+
+def test_cached_plan_frees_its_pools_on_eviction(card):
+    pl = _planner("default", card)
+    worlds = _plan_worlds("default", card)
+    pl.plan(*worlds[0])                     # the side stream and the constants, once
+    pl.programs.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    q0, qd0, qdd0, q_des, obs = worlds[0]
+    first = None
+    for n_live in (8, 16, 24, 32, 40):      # five keys through a cache of four
+        z, m = np.array(obs.zonos, copy=True), np.array(obs.mask, copy=True)
+        z[8:n_live, 0], z[8:n_live, 1:] = 5.0, 0.05 * np.eye(3)
+        m[:n_live] = m[:n_live] | (np.arange(n_live) >= 8)
+        pl.plan(q0, qd0, qdd0, q_des, ObstacleSet(z, m))
+        first = first or next(iter(pl.programs.entries.values()))
+    assert pl.programs.stats()["evictions"] == 1 and first.steps == []
+    pl.programs.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_reserved()
+    assert abs(after - before) <= 0.05 * before, (before, after)
+
+
+def test_repeated_plans_and_rollouts_hold_no_memory(card):
+    """Each solve's and each rollout's capture is released when its loop
+    ends, so planning and moving again and again keeps the allocated memory
+    flat (a battery once grew by about 1 GB per iteration)."""
+    pl = _planner("default", card)
+    args = _worlds("default")
+    rng = np.random.default_rng(0)
+    traj = TrajParams(args[0], args[1], args[2], rng.uniform(-1, 1, (B, 7)) * CFG.k_range, np.zeros(B))
+    sim = dataclasses.replace(SimConfig(), t_move=20 * SimConfig().plant_dt)
+    ones = np.ones((B, 7))
+
+    def once():
+        pl.plan_batch(*args)
+        rollout(SPEC, sim, args[0], args[1], traj, TrueParams(ones, ones), device=card)
+        torch.cuda.synchronize()
+
+    once()
+    once()
+    base = torch.cuda.memory_allocated()
+    for _ in range(4):
+        once()
+    assert torch.cuda.memory_allocated() <= base + (1 << 20), (base, torch.cuda.memory_allocated())
+
+
 def test_captured_step_replays_and_counts_what_runs(card):
     x = torch.zeros(4, device=card)
     step = CapturedStep(lambda: x.add_(1.0))
@@ -159,3 +247,20 @@ def test_captured_step_replays_and_counts_what_runs(card):
     bad = CapturedStep(lambda: float(x.sum()))
     with pytest.raises(RuntimeError):
         bad()
+
+
+def test_cached_plan_whose_capture_syncs_raises_and_is_not_kept(card):
+    """A build that reads a device value on the host cannot be captured:
+    ``plan`` raises (no fallback to the eager path) and keeps no program."""
+    pl = _planner("default", card)
+    build = pl.build_fixed
+
+    def syncing(*args):
+        prob = build(*args)
+        float(prob.q0.sum())
+        return prob
+
+    pl.build_fixed = syncing
+    with pytest.raises(RuntimeError):
+        pl.plan(*_plan_worlds("default", card)[0])
+    assert not pl.programs.entries
