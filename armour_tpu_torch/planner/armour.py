@@ -495,9 +495,9 @@ class ArmourPlanner:
         """Plan one world (no culling, as the reference's single-plan
         program): obstacles.zonos (cap, 4, 3), obstacles.mask (cap,).
 
-        The plan runs through a ``PlanProgram`` kept per shape key (the
-        obstacle bucket, computed here on the host, and the planner's
-        dtype, trajectory type, starts, T and mode switches), the
+        The plan runs through a ``PlanProgram`` kept per obstacle bucket
+        (computed here on the host; the planner's dtype, trajectory type,
+        starts, T and mode switches are fixed when it is made), the
         counterpart of the JAX package's ``jax.jit`` of its plan function
         (`armour.py:108`): on a card its first call captures, every later
         call replays.  The random starts are drawn here, outside the
@@ -507,7 +507,7 @@ class ArmourPlanner:
         if eager:
             res = self.plan_fixed(*args, eager=True)
         else:
-            res = self.programs.run(self.plan_key(b), lambda: PlanProgram(self, b), *args)
+            res = self.programs.run(b, lambda: PlanProgram(self, b), *args)
         return PlanResult(*(x[0] for x in res))
 
     def plan_args(self, q0, qd0, qdd0, q_des, obstacles: ObstacleSet, k_rand=None, k_warm=None,
@@ -521,15 +521,9 @@ class ArmourPlanner:
                    self.random_starts(1, generator) if k_rand is None else self._t(k_rand)[None],
                    torch.zeros_like(q0) if k_warm is None else self._t(k_warm)[None])
 
-    def plan_key(self, bucket: int) -> tuple:
-        """The shape key of ``plan``'s program at an obstacle bucket."""
-        cfg = self._cfg
-        return (bucket, self.dtype, self.traj_type, cfg.nlp_num_starts, cfg.num_time_steps,
-                cfg.smooth_collision_tau, self.grasp, tuple(self._si_pairs))
-
     @property
     def programs(self) -> ProgramCache:
-        """The planner's ``plan`` programs, at most 4 shape keys."""
+        """The planner's ``plan`` programs, at most 4 obstacle buckets."""
         if "_programs" not in self.__dict__:
             self._programs = ProgramCache(4)
         return self._programs
@@ -564,23 +558,19 @@ def _tree(fn, *trees):
 
 
 class PlanProgram:
-    """``ArmourPlanner.plan`` of one shape key, kept: input tensors at fixed
-    addresses into which each call copies its arguments, the build and the
-    solve composed with no host round trip and no culling, and the result
-    copied out (a later call overwrites the program's own outputs).
+    """``ArmourPlanner.plan`` at one obstacle bucket, kept: input tensors at
+    fixed addresses into which each call copies its arguments, the build
+    and the solve composed with no host round trip and no culling, and the
+    result copied out (a later call overwrites the program's own outputs).
 
     On a card the first call runs op by op and captures, every later call
-    replays (`utils/graphs.py`).  ``whole=True`` captures the whole plan as
-    one graph, the solver's inner iteration recorded op by op inside it (a
-    graph cannot be captured inside another).  ``whole=False`` captures the
-    build as one graph and keeps the solver's inner-iteration graph across
-    calls (64 replays per plan), and runs the rest (the first bank pass,
-    the outer updates, the verification) op by op.  On the CPU both run
-    op by op.  ``steps`` are the program's steps (``CapturedStep`` objects
-    on a card)."""
+    replays (`utils/graphs.py`): the build as one graph, and the solver's
+    inner-iteration graph kept across calls (64 replays per plan); the
+    first bank pass, the outer updates and the verification run op by op.
+    On the CPU all of it runs op by op.  ``steps`` are the build's step and
+    the solver's kept one (``CapturedStep`` objects on a card)."""
 
-    def __init__(self, planner: ArmourPlanner, bucket: int, whole: bool = False):
-        self.whole = whole
+    def __init__(self, planner: ArmourPlanner, bucket: int):
         spec, cfg, dt, dev = planner.spec, planner._cfg, planner.dtype, planner.device
         nf = spec.n_factors
         vec = lambda *shape: torch.zeros((1, *shape), dtype=dt, device=dev)  # noqa: E731
@@ -588,49 +578,34 @@ class PlanProgram:
         self.inputs = (vec(nf), vec(nf), vec(nf), vec(nf), vec(bucket, 4, 3),
                        torch.zeros((1, bucket), dtype=torch.bool, device=dev),
                        vec(max(cfg.nlp_num_starts - 2, 1), nf), vec(nf))
-        self.out = self.prob = None      # the whole plan's outputs; the built problem
+        self.prob = None                 # the built problem
         self.keep = {}                   # the solver's kept state and step
-        if self.whole:
 
-            def plan():
-                res = planner.plan_fixed(*self.inputs, eager=True)
-                if self.out is None:
-                    self.out = _tree(torch.clone, res)
-                else:
-                    _tree(torch.Tensor.copy_, self.out, res)
+        def build():
+            prob = planner.build_fixed(*self.inputs[:3], *self.inputs[4:6])
+            if self.prob is None:
+                self.prob = _tree(torch.clone, prob)
+            else:
+                _tree(torch.Tensor.copy_, self.prob, prob)
 
-            self.first = stepper(plan, dev, eager=False)
-        else:
-
-            def build():
-                prob = planner.build_fixed(*self.inputs[:3], *self.inputs[4:6])
-                if self.prob is None:
-                    self.prob = _tree(torch.clone, prob)
-                else:
-                    _tree(torch.Tensor.copy_, self.prob, prob)
-
-            self.first = stepper(build, dev, eager=False)
+        self.build = stepper(build, dev, eager=False)
 
     @property
     def steps(self) -> list:
-        """The whole plan's step, or the build's and the solver's kept one."""
-        if self.first is None:
+        """The build's step and the solver's kept one."""
+        if self.build is None:
             return []
-        kept = [] if self.whole else self.keep.get("state", ())[-1:]
-        return [self.first, *kept]
+        return [self.build, *self.keep.get("state", ())[-1:]]
 
     def __call__(self, *args) -> PlanResult:
         for buf, x in zip(self.inputs, args):
             buf.copy_(x)
-        self.first()
-        if self.whole:
-            res = self.out
-        else:
-            q_des, k_rand, k_warm = self.inputs[3], *self.inputs[6:]
-            res = self.planner.solve(self.prob, q_des, k_rand=k_rand, k_warm=k_warm, keep=self.keep)
+        self.build()
+        q_des, k_rand, k_warm = self.inputs[3], *self.inputs[6:]
+        res = self.planner.solve(self.prob, q_des, k_rand=k_rand, k_warm=k_warm, keep=self.keep)
         return _tree(torch.clone, res)
 
     def release(self):
         for step in self.steps:
             release(step)
-        self.first, self.out, self.prob, self.keep, self.inputs = None, None, None, {}, ()
+        self.build, self.prob, self.keep, self.inputs = None, None, {}, ()

@@ -1,0 +1,87 @@
+"""Per-iteration wall split of the 100-world battery.
+
+    python -m armour_tpu_torch.profile_battery [--iterations 3] [--tree DIR]
+    python -m armour_tpu_torch.profile_battery --device cpu --iterations 1 \\
+        --max-worlds 1 --time-steps 16 --collision-oracle box
+
+Runs the battery driver (``run_batch_stepped``) over the worlds of
+`assets/worlds` (all of them in one batch; T=128, f32, straight HLP, mesh
+oracle by default) for a few iterations and prints one JSON line: each
+iteration's build, solve, roll-and-check and wall seconds (timed to a device
+synchronise), the total seconds and the peak allocated card memory.
+
+``--tree DIR`` runs the package of another checkout instead of this one (for
+example the parent commit unpacked into a git-ignored directory), so that
+two versions run the same probe in one chip call, each in a process of its
+own.  Runs on the card unless ``--device cpu`` is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import json
+import os
+import sys
+import time
+
+SPLIT = ("build_probs_s", "solve_s", "roll_and_check_s", "wall_s")
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--iterations", type=int, default=3)
+    ap.add_argument("--max-worlds", type=int, default=100)
+    ap.add_argument("--time-steps", type=int, default=128)
+    ap.add_argument("--collision-oracle", default="mesh", choices=["mesh", "box"])
+    ap.add_argument("--tree", default=None, help="checkout whose armour_tpu_torch to run")
+    ap.add_argument("--device", default=None, help="torch device (default: the card)")
+    args = ap.parse_args(argv)
+
+    if args.tree:
+        # import the package afresh from the other checkout
+        tree = os.path.abspath(args.tree)
+        sys.path.insert(0, tree)
+        for name in [m for m in sys.modules if m.split(".")[0] == "armour_tpu_torch"]:
+            del sys.modules[name]
+    import torch
+
+    from armour_tpu_torch.collision import kernels
+    from armour_tpu_torch.config import PlannerConfig, SimConfig
+    from armour_tpu_torch.robots.kinova import kinova_gen3_spec
+    from armour_tpu_torch.sim.harness import EpisodeRunner, run_batch_stepped
+    from armour_tpu_torch.sim.scenarios import load_world_csv, stack_worlds
+
+    root = os.path.abspath(os.path.join(os.path.dirname(kernels.__file__), "..", ".."))
+    if args.tree:
+        assert root == tree, (root, tree)
+    f32 = torch.float32
+    cfg = PlannerConfig(num_time_steps=args.time_steps)
+    runner = EpisodeRunner(kinova_gen3_spec(), cfg, SimConfig(max_iterations=args.iterations), f32,
+                           device=args.device)
+    dev = runner.device
+    files = sorted(glob.glob(os.path.join(root, "assets", "worlds", "*.csv")))[:args.max_worlds]
+    worlds = [load_world_csv(f, cfg.max_obstacles, f32, device=dev) for f in files]
+    starts, goals, zonos, masks = stack_worlds(worlds, f32)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    trace = []
+    sync()
+    t0 = time.perf_counter()
+    run_batch_stepped(runner, starts, goals, zonos, masks, gen,
+                      collision_oracle=args.collision_oracle, hlp="straight", trace=trace)
+    sync()
+    out = {"tree": root, "worlds": len(files), "seconds": time.perf_counter() - t0,
+           "max_allocated_gib": torch.cuda.max_memory_allocated() / 2**30
+           if dev.type == "cuda" else None,
+           "iterations": [{k: tr[k] for k in SPLIT} for tr in trace]}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+if __name__ == "__main__":
+    main()

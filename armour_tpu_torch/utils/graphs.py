@@ -102,11 +102,11 @@ class CapturedStep:
 
     def release(self):
         """Drop the graph, the memory pool and the step (with what its
-        closure holds), once the device has finished the last replay.  The
-        caller drops every tensor that the step made, and may then
-        ``torch.cuda.empty_cache()``."""
+        closure holds), with no wait for the device: a graph destroyed while
+        a replay runs is freed when the replay ends, and the caching
+        allocator frees a released pool's memory only after a device
+        synchronise.  The caller drops every tensor that the step made."""
         if self.graph is not None:
-            torch.cuda.synchronize()
             self.graph.reset()
         self.graph = self.pool = self.step = None
 

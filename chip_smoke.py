@@ -19,8 +19,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
   4. main     ArmourPlanner.plan_batch at B=128, T=128, 8 obstacles: time,
               feasibility and kernel launches per plan; then the 40-obstacle
               point; then latency_batch1: plan() through its program kept
-              per shape key, both designs (split: build graph + the solver's
-              inner graph kept; whole: one graph), first call and 5 replays
+              per obstacle bucket (the build graph and the solver's inner
+              graph kept), first call and 5 replays
               held to the eager plan to the bit with 65 launches each, the
               bucket sequence 8 -> 16 -> 8 through the cache, and the main
               kernel on the batch-1 bank; then the collision check of the
@@ -86,7 +86,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
               op: plan_batch at B=128, T=128 on 8obs, 40obs, orig, 12 starts,
               smooth, grasp, Bernstein + SI (near_si) and rotatotope, and two
               world sets in a row, equal to the bit with the launches of the
-              eager run; batch-1 plans; 200-step rollouts of the five
+              eager run (batch-1 plans: phase 4); 200-step rollouts of the five
               controllers in f32 and f64, equal to the bit; both times and
               the capture ms
 19. controller_sweep
@@ -891,14 +891,14 @@ def tool_phases(torch, dev, check_and_time, rows, out_dir):
 def graph_phases(torch, dev, probs8, probs40, out_dir, T=128):
     """Phase 18: the CUDA graphs of the solver iteration and of the RK4 step
     held against the same steps run op by op (every plan_batch mode, SI,
-    rotatotope, two world sets in a row, batch-1 plans, five controllers in
-    f32 and f64), with both times and the capture ms.  Every path resets
+    rotatotope, two world sets in a row, five controllers in f32 and f64),
+    with both times and the capture ms (batch-1 plans: latency_batch1).  Every path resets
     the launch counts just before it and reads them just after.  ``dev``
     and ``T`` exist to rehearse the phase at a small size on the CPU (where
     graph and eager are one path)."""
     from armour_tpu_torch.collision import kernels
     from armour_tpu_torch.config import GraspConfig, PlannerConfig, SimConfig
-    from armour_tpu_torch.planner.armour import ArmourPlanner, obstacle_bucket
+    from armour_tpu_torch.planner.armour import ArmourPlanner
     from armour_tpu_torch.planner.rotatotope import rotatotope_planner
     from armour_tpu_torch.problems import problem_set
     from armour_tpu_torch.robots.kinova import kinova_gen3_spec
@@ -994,24 +994,7 @@ def graph_phases(torch, dev, probs8, probs40, out_dir, T=128):
     consecutive = [same(x.k, y.k) and torch.equal(x.feasible, y.feasible) for x, y in zip(graphed, eager_r)]
     assert all(consecutive), f"graphs: consecutive solves against eager {consecutive}"
     assert not same(graphed[0].k, graphed[1].k), "graphs: the two world sets gave the same plans"
-    # batch-1 latency, eager and graph: plan()'s steps, with the solver's
-    # route chosen
-    b8 = obstacle_bucket(probs8.masks[0])
-    z1 = torch.as_tensor(probs8.zonos[0][None, :b8], dtype=f32, device=dev)
-    m1 = torch.as_tensor(probs8.masks[0][None, :b8], device=dev)
-    rest = np.zeros((1, n))
-
-    def plan1(i, eager):
-        prob1 = pl.build_probs(probs8.q0[i][None], rest, rest, z1, m1, cull=False)
-        return pl.solve(prob1, probs8.q0[i][None] + 0.05, eager=eager)
-
-    lat = {}
-    for eager in (True, False):
-        runs = [run(lambda i=i: plan1(i, eager)) for i in range(2)]
-        lat[eager] = {"median_ms": statistics.median(r[1] for r in runs[1:]) * 1e3,
-                      "runs_ms": [r[1] * 1e3 for r in runs], "capture_ms": runs[-1][3]}
-    emit({"phase": "graphs", "path": "consecutive_world_sets", "sets": 2, "equal_to_eager": consecutive,
-          "latency_batch1": {"eager": lat[True], "graph": lat[False]}})
+    emit({"phase": "graphs", "path": "consecutive_world_sets", "sets": 2, "equal_to_eager": consecutive})
     del graphed, eager_r, sets
 
     # the RK4 step: 200 steps of every controller, f32 and f64
@@ -1040,22 +1023,21 @@ def graph_phases(torch, dev, probs8, probs40, out_dir, T=128):
             roll_rows.append(row)
             emit({"phase": "graphs", "path": "rollout", **row})
     with open(os.path.join(out_dir, "graphs.json"), "w") as f:
-        json.dump({"plan_batch": plan_rows, "latency_batch1": lat, "rollout": roll_rows}, f, indent=1)
+        json.dump({"plan_batch": plan_rows, "rollout": roll_rows}, f, indent=1)
 
 
 def latency_phase(torch, dev, check_and_time, rows, probs8, probs40, n_replays=5, T=128):
-    """Phase 4b, latency_batch1: plan() through its program kept per shape
-    key.  For each design (``split``: the build graph and the solver's
-    inner-iteration graph kept across calls; ``whole``: the whole plan as
-    one graph) the first call (capture included) and ``n_replays`` replays
-    on other worlds of the same bucket; then, through ``plan`` and its
+    """Phase 4b, latency_batch1: plan() through its program kept per
+    obstacle bucket (the build graph and the solver's inner-iteration graph
+    kept across calls): the first call (capture included) and ``n_replays``
+    replays on other worlds of the same bucket; then, through ``plan`` and its
     cache, the bucket sequence 8 -> 16 -> 8.  Every plan is held to the
     eager ``plan`` (op by op, no program) to the bit (k, feasible,
     max_violation), every replay to 65 main-kernel launches.  Then the main
     kernel on the batch-1 bank against its plain version.  Each path resets
     the launch counts just before it and reads them just after.  ``dev``,
     ``n_replays`` and ``T`` exist to rehearse the phase at a small size on
-    the CPU (where both designs run op by op)."""
+    the CPU (where the program runs op by op)."""
     from armour_tpu_torch.collision import kernels
     from armour_tpu_torch.collision.zonotope import ObstacleSet, kernel_layout
     from armour_tpu_torch.config import PlannerConfig
@@ -1109,30 +1091,26 @@ def latency_phase(torch, dev, check_and_time, rows, probs8, probs40, n_replays=5
         assert all(eq.values()), f"latency_batch1 {label}: plan against eager {eq}"
         return eq
 
-    designs = {}
-    for label, whole in (("split", False), ("whole", True)):
-        b, args0 = pl.plan_args(*worlds[0], k_rand=k_rand[0])
-        prog = PlanProgram(pl, b, whole=whole)
-        first, first_ms, n0 = timed(lambda: prog(*args0))
-        check(row0(first), 0, f"{label} first call")
-        replays = []
-        for i in range(1, n_replays + 1):
-            b_i, args = pl.plan_args(*worlds[i], k_rand=k_rand[i])
-            assert b_i == b, (b_i, b)
-            res, ms, n_launch = timed(lambda: prog(*args))
-            check(row0(res), i, f"{label} replay {i}")
-            assert n_launch == passes, f"latency_batch1 {label}: {n_launch} launches per replay"
-            replays.append(ms)
-        designs[label] = {
-            "first_call_ms": first_ms, "first_call_launches": n0,
-            "capture_ms": [s.capture_ms for s in prog.steps if isinstance(s, CapturedStep)],
-            "graphs": sum(isinstance(s, CapturedStep) for s in prog.steps),
-            "replay_median_ms": statistics.median(replays), "replay_runs_ms": replays,
-            "launches_per_replay": passes, "bits_equal": True}
-        prog.release()
-        del prog
-        if on_card:
-            torch.cuda.empty_cache()
+    b, args0 = pl.plan_args(*worlds[0], k_rand=k_rand[0])
+    prog = PlanProgram(pl, b)
+    first, first_ms, n0 = timed(lambda: prog(*args0))
+    check(row0(first), 0, "first call")
+    replays = []
+    for i in range(1, n_replays + 1):
+        b_i, args = pl.plan_args(*worlds[i], k_rand=k_rand[i])
+        assert b_i == b, (b_i, b)
+        res, ms, n_launch = timed(lambda: prog(*args))
+        check(row0(res), i, f"replay {i}")
+        assert n_launch == passes, f"latency_batch1: {n_launch} launches per replay"
+        replays.append(ms)
+    program = {
+        "first_call_ms": first_ms, "first_call_launches": n0,
+        "capture_ms": [s.capture_ms for s in prog.steps if isinstance(s, CapturedStep)],
+        "graphs": sum(isinstance(s, CapturedStep) for s in prog.steps),
+        "replay_median_ms": statistics.median(replays), "replay_runs_ms": replays,
+        "launches_per_replay": passes, "bits_equal": True}
+    prog.release()
+    del prog
 
     # through plan() and its cache: buckets 8 -> 16 -> 8 (world 1 replays
     # the program world 0 made, world 2 after the bucket change)
@@ -1144,9 +1122,9 @@ def latency_phase(torch, dev, check_and_time, rows, probs8, probs40, n_replays=5
         seq.append({"world": i, "bucket": bucket, "ms": ms, "launches": n_launch})
     cache = pl.programs.stats()
     assert (cache["hits"], cache["misses"]) == (2, 2), cache
-    emit({"phase": "latency_batch1", "T": T, "dtype": "float32", "default_design": "split",
+    emit({"phase": "latency_batch1", "T": T, "dtype": "float32",
           "median_ms": statistics.median(s["ms"] for s in seq if s["world"] in (1, 2)),
-          "designs": designs, "bucket_sequence": seq, "cache": cache,
+          "program": program, "bucket_sequence": seq, "cache": cache,
           "eager_ms": [e[1] for e in eager], "eager_median_ms": statistics.median(e[1] for e in eager)})
 
     # the main kernel on the batch-1 bank of the program (B = 1, bucket 8)

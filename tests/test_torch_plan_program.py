@@ -1,4 +1,4 @@
-"""``ArmourPlanner.plan`` through its program kept per shape key (the
+"""``ArmourPlanner.plan`` through its program kept per obstacle bucket (the
 counterpart of the JAX package's ``jax.jit`` of its plan function), on the
 CPU, where the program runs op by op: its static-input copies, its cache
 keys and its eviction are the same code as on the card, only the capture is
@@ -78,7 +78,7 @@ def test_cached_plan_equals_eager_plan_across_worlds_and_buckets(worlds):
     stats = pl.programs.stats()
     assert (stats["misses"], stats["hits"], stats["evictions"], stats["entries"]) == (2, 2, 0, 2)
     assert stats["captures"] == 0        # nothing is captured on the CPU
-    assert sorted(key[0] for key in pl.programs.entries) == [8, 16]
+    assert sorted(pl.programs.entries) == [8, 16]
 
 
 def test_cache_evicts_past_its_bound_and_releases(worlds):
@@ -106,12 +106,12 @@ class _NoHostTraffic(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-@pytest.mark.parametrize("whole", [False, True], ids=["split", "whole"])
-def test_program_replay_makes_no_host_traffic(worlds, whole, monkeypatch):
-    pl = ArmourPlanner(SPEC, CFG, F64, device="cpu")
+@pytest.mark.parametrize("traj_type", ["bernstein", "orig"])
+def test_program_replay_makes_no_host_traffic(worlds, traj_type, monkeypatch):
+    pl = ArmourPlanner(SPEC, CFG, F64, device="cpu", traj_type=traj_type)
     (w0, k0), (w1, k1) = worlds[:2]
     b, args0 = pl.plan_args(*w0, k_rand=k0)
-    prog = PlanProgram(pl, b, whole=whole)
+    prog = PlanProgram(pl, b)
     prog(*args0)                         # the first call makes the constants
     _, args1 = pl.plan_args(*w1, k_rand=k1)
     for name in ("numpy", "tolist", "cpu"):
@@ -119,7 +119,9 @@ def test_program_replay_makes_no_host_traffic(worlds, whole, monkeypatch):
     with _NoHostTraffic():
         res = prog(*args1)
     monkeypatch.undo()
-    _assert_same(type(res)(*(x[0] for x in res)), _eager(w1, k1))
+    eager = ArmourPlanner(SPEC, CFG, F64, device="cpu", traj_type=traj_type).plan(
+        *w1, k_rand=k1, eager=True)
+    _assert_same(type(res)(*(x[0] for x in res)), eager)
 
 
 class _FakeCapture(CapturedStep):

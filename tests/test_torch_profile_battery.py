@@ -1,0 +1,29 @@
+"""The battery probe (``python -m armour_tpu_torch.profile_battery``) on the
+CPU at a small size: 1 world of `assets/worlds`, T=16, 1 iteration, the box
+oracle, run through ``--tree`` on this checkout in a process of its own (the
+option re-imports the package).  No JAX here.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.abspath(os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
+
+
+def test_profile_battery_prints_the_wall_split_of_each_iteration():
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    run = subprocess.run(
+        [sys.executable, "-m", "armour_tpu_torch.profile_battery", "--device", "cpu",
+         "--iterations", "1", "--max-worlds", "1", "--time-steps", "16",
+         "--collision-oracle", "box", "--tree", ROOT],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-2000:]
+    out = json.loads(run.stdout.strip().splitlines()[-1])
+    assert out["tree"] == ROOT and out["worlds"] == 1 and out["max_allocated_gib"] is None
+    (it,) = out["iterations"]
+    assert set(it) == {"build_probs_s", "solve_s", "roll_and_check_s", "wall_s"}
+    assert all(v > 0 for v in it.values())
+    assert it["build_probs_s"] + it["solve_s"] + it["roll_and_check_s"] <= it["wall_s"]
+    assert it["wall_s"] <= out["seconds"]
