@@ -14,18 +14,42 @@ synchronise), the total seconds and the peak allocated card memory.
 example the parent commit unpacked into a git-ignored directory), so that
 two versions run the same probe in one chip call, each in a process of its
 own.  Runs on the card unless ``--device cpu`` is given.
+
+``--profile-from N`` profiles the host (cProfile) from iteration N to the
+end: a late slice of a run, where the stalled worlds' guidance runs.  The
+line then holds each iteration's whole split (the iterations before N run
+unprofiled) and ``host_profile``: the cumulative seconds of the host
+guidance phases inside the profiled slice (RRT-connect, RRT*, EE RRT*, IK,
+the clearance waypoints, the mesh oracle); the build, the solve and the move
+are in each iteration's split.
 """
 
 from __future__ import annotations
 
 import argparse
+import cProfile
 import glob
 import json
 import os
+import pstats
 import sys
 import time
 
-SPLIT = ("build_probs_s", "solve_s", "roll_and_check_s", "wall_s")
+SPLIT = ("ref_waypoints_s", "build_probs_s", "solve_s", "roll_and_check_s", "mesh_refine_s",
+         "host_s", "wall_s")
+# the host phases of a battery iteration: (module file, function) -> name.
+# The build, the solve and the move are the trace's split: on the card
+# cProfile recorded no entry for the planner's solve or the ALM loop (their
+# callees it did), so it is not asked for them
+PHASES = {
+    ("hlp.py", "rrt_connect_waypoints"): "rrt_connect",
+    ("hlp.py", "rrt_star_waypoints"): "rrt_star",
+    ("hlp.py", "ee_rrt_star_waypoints"): "ee_rrt_star",
+    ("hlp.py", "ee_rrt_star_config_waypoints"): "ee_rrt_star_config",
+    ("hlp.py", "ik_to_position"): "ik",
+    ("hlp.py", "clearance_waypoint"): "clearance_waypoint",
+    ("mesh_oracle.py", "check"): "mesh_oracle",
+}
 
 
 def main(argv=None) -> dict:
@@ -36,6 +60,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--collision-oracle", default="mesh", choices=["mesh", "box"])
     ap.add_argument("--tree", default=None, help="checkout whose armour_tpu_torch to run")
     ap.add_argument("--device", default=None, help="torch device (default: the card)")
+    ap.add_argument("--profile-from", type=int, default=None, metavar="N",
+                    help="profile the host from iteration N to the end")
     args = ap.parse_args(argv)
 
     if args.tree:
@@ -70,15 +96,37 @@ def main(argv=None) -> dict:
             torch.cuda.synchronize()
 
     trace = []
+    prof = cProfile.Profile() if args.profile_from is not None else None
+
+    def progress(it, _summary):
+        if it + 1 == args.profile_from:
+            prof.enable()
+
     sync()
     t0 = time.perf_counter()
+    if prof is not None and args.profile_from == 0:
+        prof.enable()
     run_batch_stepped(runner, starts, goals, zonos, masks, gen,
-                      collision_oracle=args.collision_oracle, hlp="straight", trace=trace)
+                      collision_oracle=args.collision_oracle, hlp="straight", trace=trace,
+                      progress=progress if prof is not None else None)
     sync()
-    out = {"tree": root, "worlds": len(files), "seconds": time.perf_counter() - t0,
+    seconds = time.perf_counter() - t0
+    out = {"tree": root, "worlds": len(files), "seconds": seconds,
            "max_allocated_gib": torch.cuda.max_memory_allocated() / 2**30
            if dev.type == "cuda" else None,
-           "iterations": [{k: tr[k] for k in SPLIT} for tr in trace]}
+           "iterations": [{k: tr[k] for k in (*SPLIT, "active")} for tr in trace]}
+    if prof is not None:
+        prof.disable()
+        stats = pstats.Stats(prof).stats     # (file, line, name) -> (cc, nc, tt, ct, callers)
+        phases = dict.fromkeys(PHASES.values(), 0.0)
+        for (path, _, name), (_, _, _, ct, _) in stats.items():
+            key = PHASES.get((os.path.basename(path), name))
+            if key:
+                phases[key] += ct
+        late = trace[args.profile_from:]
+        out["host_profile"] = {"from": args.profile_from, "iterations": len(late),
+                               "wall_s": sum(tr["wall_s"] for tr in late),
+                               "phase_s": phases}
     print(json.dumps(out), flush=True)
     return out
 

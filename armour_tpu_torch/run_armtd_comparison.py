@@ -16,7 +16,12 @@ half.  The paper's claim is equal safety (no collision in either half) and
 fewer goals or torque violations for ARMTD, which constrains no input.
 
 ``--halves`` runs a subset (a half can take most of an hour on a card) and
-merges it into the halves an existing ``--out`` already holds.  Flags that
+merges it into the halves an existing ``--out`` already holds.  Halves and
+disjoint ``--worlds`` subsets run side by side, each with its own ``--out``,
+are joined world by world with ``python -m armour_tpu_torch.run_worlds
+--join A.json B.json ... --out all.json``.  With ``--progress-every N`` each
+half also writes its partial record every N iterations to
+``<out>.<half>.progress.json``.  Flags that
 this script does not know (``--time-steps``, ``--f64``,
 ``--collision-oracle``, ``--batch``, ...) go to both ``run_worlds`` runs.
 Runs on the card unless ``--device cpu`` is given.
@@ -36,7 +41,8 @@ DEFAULT_OUT = os.path.join(ROOT, "results", "torch_armtd_vs_armour.json")
 
 
 def main(argv=None) -> dict:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    # no abbreviations: run_worlds' --worlds must pass through, not match --worlds-dir
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0], allow_abbrev=False)
     ap.add_argument("--worlds-dir", default=run_worlds.ASSETS)
     ap.add_argument("--max-worlds", type=int, default=100)
     ap.add_argument("--max-iterations", type=int, default=500)
@@ -56,7 +62,10 @@ def main(argv=None) -> dict:
         common += ["--device", args.device]
     for name in args.halves:
         print(f"=== {name} ({HALVES[name]}) ===", flush=True)
-        results[name] = run_worlds.main([*common, "--traj-type", HALVES[name]])
+        # with --progress-every, each half keeps its partial record beside --out
+        progress = (["--out", f"{os.path.splitext(args.out)[0]}.{name}.progress.json"]
+                    if "--progress-every" in rest else [])
+        results[name] = run_worlds.main([*common, "--traj-type", HALVES[name], *progress])
     results = {k: results[k] for k in HALVES if k in results}
 
     with open(args.out, "w") as f:

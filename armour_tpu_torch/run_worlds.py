@@ -9,6 +9,11 @@ reference-format world CSVs (the suite in ``assets/worlds`` by default),
 prints the safety/success table, and writes the JSON schema of
 ``scripts/run_100_worlds.py`` with ``--out``.  Runs on the card unless
 ``--device cpu`` is given.
+
+A battery too long for one process's time runs as disjoint ``--worlds``
+subsets side by side, each with its own ``--out``; ``--join A.json B.json
+--out all.json`` then writes the one record of the whole battery.  Files of
+named records (``run_armtd_comparison``'s halves) join name by name.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import json
 import os
 import time
 
+import numpy as np
 import torch
 
 from armour_tpu_torch.config import PlannerConfig, SimConfig
@@ -44,6 +50,56 @@ def world_files(worlds_dir: str, max_worlds: int, names: str = "") -> list:
     if not files:
         raise SystemExit(f"no world CSVs in {worlds_dir}")
     return files
+
+
+def join(parts: list) -> dict:
+    """One battery record from the records of disjoint world subsets of the
+    same protocol (``--worlds``, run side by side): the per-world rows
+    sorted by world, the totals recounted from them, the longest part's wall
+    time, ``complete`` when every part ran to its end (a record without
+    ``complete`` is a run's final one), and ``parts``: which worlds each
+    part ran."""
+    rows = sorted((r for p in parts for r in p["worlds"]), key=lambda r: r["world"])
+    names = [r["world"] for r in rows]
+    if len(set(names)) != len(names):
+        raise ValueError("the parts' world subsets overlap")
+    for key in ("protocol", "traj_type", "max_iterations", "device"):
+        if any(p[key] != parts[0][key] for p in parts):
+            raise ValueError(f"the parts differ in {key!r}")
+    cols = {k: np.array([r[k] for r in rows]) for k in (*FLAGS, "iterations", "n_feasible_plans")}
+    d = summarize_episodes(EpisodeSummary(**cols, **{k: None for k in EpisodeSummary._fields
+                                                       if k not in cols}),
+                           protocol=parts[0]["protocol"])
+    d.update({k: parts[0][k] for k in ("traj_type", "max_iterations")})
+    d["wall_seconds"] = max(p["wall_seconds"] for p in parts)
+    d["episodes_per_minute"] = round(len(rows) / d["wall_seconds"] * 60, 2)
+    d["device"] = parts[0]["device"]
+    d["complete"] = all(p.get("complete", True) for p in parts)
+    d["parts"] = [{"worlds": [r["world"] for r in p["worlds"]], "wall_seconds": p["wall_seconds"],
+                   "complete": p.get("complete", True), "iterations_run": p.get("iterations_run")}
+                  for p in parts]
+    d["worlds"] = rows
+    return d
+
+
+def join_files(paths: list) -> dict:
+    """`join` of the records in ``paths``; where the files hold named
+    records (``{half: record}``), one join per name, in the order the names
+    first appear."""
+    docs = []
+    for path in paths:
+        with open(path) as f:
+            docs.append(json.load(f))
+    plain = ["worlds" in d for d in docs]
+    if all(plain):
+        return join(docs)
+    if any(plain):
+        raise ValueError("the files mix records and named records")
+    named = {}
+    for d in docs:
+        for name, rec in d.items():
+            named.setdefault(name, []).append(rec)
+    return {name: join(recs) for name, recs in named.items()}
 
 
 def main(argv=None):
@@ -73,7 +129,18 @@ def main(argv=None):
                     help="also write --out every N iterations, marked complete=false, so that a "
                          "run cut short leaves its record (0 = only at the end)")
     ap.add_argument("--device", default=None, help="torch device (default: the card)")
+    ap.add_argument("--join", nargs="+", default=None, metavar="JSON",
+                    help="write the join of these records (or named records) of disjoint world "
+                         "subsets to --out")
     args = ap.parse_args(argv)
+    if args.join:
+        d = join_files(args.join)
+        for rec in [d] if "worlds" in d else d.values():
+            print(format_summary(rec))
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(d, f, indent=2)
+        return d
 
     dtype = torch.float64 if args.f64 else torch.float32
     spec = kinova_gen3_spec()

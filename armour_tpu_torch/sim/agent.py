@@ -8,9 +8,12 @@ sub-millisecond step instead of ode15s (`uarmtd_agent.m:292-311`).
 
 The JAX package runs the steps as one jitted ``lax.scan`` per world; here
 every tensor carries the worlds in front (state (B, nf); any leading dims,
-or none, work), and on a card one step is captured as a CUDA graph at the
-first step of each ``rollout`` call and replayed for the others
-(`utils/graphs.py`).  The step's time, noise row and iLQR knot are read
+or none, work).  On a card ``rollout`` runs the whole move as ONE launch of
+a hand-written kernel (`sim/rollout_kernel.py`, `csrc/rollout.cu`), the
+counterpart of that scan; ``rollout_plain`` is the plain PyTorch version
+(the CPU path and the kernel's reference), in which one step is captured as
+a CUDA graph at the first step of each call on a card and replayed for the
+others (`utils/graphs.py`).  The step's time, noise row and iLQR knot are read
 from per-call device tables at a device step index that the step itself
 advances, so nothing of the host is frozen into the graph.  Each step is
 written for few device launches: the seven unit accelerations of the mass
@@ -146,9 +149,43 @@ def rollout(
     traj_type: str = "bernstein",
     device=None,
     dtype: torch.dtype = torch.float64,
+):
+    """Integrate the closed loop over [0, t_move] for all worlds at once:
+    on a card as ONE launch of the rollout kernel
+    (`sim/rollout_kernel.py::fused_rollout`, `csrc/rollout.cu`), on the CPU
+    by `rollout_plain`.  The arguments and results are `rollout_plain`'s,
+    which is also the reference the kernel is held to."""
+    if controller not in CONTROLLERS:
+        raise ValueError(f"unknown controller {controller!r}")
+    dev = resolve_device(device)
+    kw = dict(duration=duration, noise=noise, generator=generator, controller=controller,
+              traj_type=traj_type, device=dev, dtype=dtype)
+    if dev.type == "cuda":
+        from armour_tpu_torch.sim.rollout_kernel import fused_rollout
+
+        return fused_rollout(spec, sim, q, qd, traj, true_params, **kw)
+    return rollout_plain(spec, sim, q, qd, traj, true_params, **kw)
+
+
+def rollout_plain(
+    spec: RobotSpec,
+    sim: SimConfig,
+    q,
+    qd,
+    traj: TrajParams,
+    true_params: TrueParams,
+    duration: float = 1.0,
+    noise=None,
+    generator: torch.Generator | None = None,
+    controller: str = "robust",
+    traj_type: str = "bernstein",
+    device=None,
+    dtype: torch.dtype = torch.float64,
     eager: bool = False,
 ):
-    """Integrate the closed loop over [0, t_move] for all worlds at once.
+    """Integrate the closed loop over [0, t_move] for all worlds at once,
+    in plain PyTorch: the CPU path of `rollout` and the reference its
+    kernel is held to.
 
     ``noise`` (n_steps, 2, ..., nf), or ``generator`` with
     ``sim.measurement_noise_std > 0``, puts measurement noise on the state

@@ -61,6 +61,7 @@ from armour_tpu_torch.planner.hlp import (
 )
 from armour_tpu_torch.robots.spec import RobotSpec
 from armour_tpu_torch.sim.agent import TrajParams, TrueParams, rollout, rollout_direct, traj_eval
+from armour_tpu_torch.sim.rollout_kernel import fused_rollout
 from armour_tpu_torch.sim.world import arm_collision_check, goal_check, goal_check_ee
 
 CLEARANCE_SAMPLES = 32   # clearance_waypoint's n_samples
@@ -583,6 +584,7 @@ def run_batch_stepped(
         if done.all():
             break
         launches0 = kernels.launch_counts()
+        moves0 = fused_rollout.launches
         t0 = time.perf_counter()
         d = draws(it)
         q0p, qd0p, qdd0p = traj_eval(traj, scfg.t_move, pcfg.duration, traj_type, pcfg.t_plan)
@@ -758,6 +760,7 @@ def run_batch_stepped(
                 "bucket": bucket, "bucket_culled": int(probs.hp.dpos.shape[-2]),
                 "feasible": int((active & feas).sum()),
                 "launches": {k: launches1[k] - launches0[k] for k in launches1},
+                "rollout_launches": fused_rollout.launches - moves0,
                 "clearance_worlds": n_clear, "mesh_flagged": n_flagged,
                 "mesh_confirmed": int((col & active).sum()),
                 "goals": int(summ["goal_reached"].sum()),

@@ -5,8 +5,9 @@
 
 Phases (each prints one JSON line; any failure exits non-zero):
   1. device   card name and power limit, torch/CUDA versions, TF32 flags
-  2. build    nvcc build of armour_tpu_torch/csrc/collision_bank.cu; fails
-              if ptxas reports a spill in any instantiation
+  2. build    nvcc builds of armour_tpu_torch/csrc/collision_bank.cu and
+              csrc/rollout.cu and the g++ build of the mesh oracle, all at
+              once; fails if ptxas reports a spill in any instantiation
   3. kernels  each of the three collision kernels against its plain PyTorch
               version on a bank built by the planner's own main path
               (seed 0, B=128, T=128, bucket 8, bf16 A; then an f64 bank),
@@ -16,6 +17,14 @@ Phases (each prints one JSON line; any failure exits non-zero):
               at 12 starts (two launches) and on the 40-obstacle bank
               (bucket 16); then small random banks at T=32 (staged path) and
               at a slab whose rows are not 16-byte aligned (direct path)
+ 3b. rollout_kernel
+              the rollout kernel (csrc/rollout.cu: the whole move in one
+              launch) against rollout_plain on the same inputs and noise,
+              B=128, 200 steps: five controllers x bernstein/orig x f32/f64
+              and the planar 2- and 6-link arms, one launch each, the safety
+              flags equal; then the battery's move (robust, f32, 1,000 steps)
+              timed with CUDA events beside the plain version's graph, with
+              its bounds (operations, and the chain of dependent operations)
   4. main     ArmourPlanner.plan_batch at B=128, T=128, 8 obstacles: time,
               feasibility and kernel launches per plan; then the 40-obstacle
               point; then latency_batch1: plan() through its program kept
@@ -28,10 +37,12 @@ Phases (each prints one JSON line; any failure exits non-zero):
   5. modes    one plan_batch at the same width for traj_type="orig", with
               12 starts, for smooth collision (tau = 1e-3) and with grasp
               constraints
-  6. track    one closed-loop rollout of the 128 plans of phase 4: robust
-              controller, RK4 plant at 5e-4 s, 200 steps, all worlds at once
+  6. track    the closed-loop move of the 128 plans of phase 4: robust
+              controller, RK4 plant at 5e-4 s, 1,000 steps, all worlds at once,
+              ONE launch of the rollout kernel: ms per move, device idle share
   7. parity   plan() on the card against plan() on the CPU (4 worlds, then
-              one world per mode) and a 20-step rollout, T=32, f64
+              one world per mode) and a 20-step rollout (the kernel against
+              the CPU's plain version), T=32, f64
   8. self_intersection
               ArmourPlanner(self_intersection=True) and rotatotope_planner
               (orig + SI) at B=128, T=128 on the 8obs worlds, then
@@ -54,8 +65,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
               the step, with the main kernel against its plain version there
 11. battery  run_batch_stepped over the 100 worlds of assets/worlds at
               B=100, T=128, f32, 2 iterations, mesh oracle: one JSON line per
-              iteration (wall split, buckets, launches = 65, mesh hits), the
-              summary; fails on any safety violation.  The main kernel is held
+              iteration (wall split, buckets, launches = 65 and one rollout
+              kernel launch, mesh hits), the summary with the mean split;
+              fails on any safety violation.  The main kernel is held
               against its plain version on the battery's first bank
 12. hard     the doorway scene with up-front RRT-connect guidance, 2
               iterations
@@ -81,8 +93,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
 17. grasp_example
               grasp_example.main on the card: a feasible grasp plan, 65 main
               kernel launches per plan; the kernel at the example's shape
-18. graphs   the CUDA graphs of the solver iteration and of the RK4 step
-              (every phase above runs them) against the same steps run op by
+18. graphs   the CUDA graphs of the solver iteration (every phase above runs
+              them) and of rollout_plain's RK4 step against the same steps run op by
               op: plan_batch at B=128, T=128 on 8obs, 40obs, orig, 12 starts,
               smooth, grasp, Bernstein + SI (near_si) and rotatotope, and two
               world sets in a row, equal to the bit with the launches of the
@@ -280,6 +292,7 @@ def episode_phases(torch, dev, check_and_time, rows, out_dir, n_worlds=100, T=12
     for tr in trace:
         emit({"phase": "battery_iteration", **tr})
         assert tr["launches"] == dict(zero, **{main_name: passes}), tr["launches"]
+        assert tr["rollout_launches"] == 1, tr["rollout_launches"]
     assert counts == dict(zero, **{main_name: passes * len(trace)}), counts
     summary = summarize_episodes(s)
     with open(os.path.join(out_dir, "battery_trace.json"), "w") as f:
@@ -288,6 +301,10 @@ def episode_phases(torch, dev, check_and_time, rows, out_dir, n_worlds=100, T=12
     emit({"phase": "battery", "worlds": B, "T": T, "dtype": "float32", "hlp": "straight",
           "collision_oracle": "mesh", "iterations": len(trace), "seconds": battery_s,
           "seconds_per_iteration": battery_s / max(len(trace), 1), "launches": counts,
+          "rollout_launches": sum(tr["rollout_launches"] for tr in trace),
+          "split_mean_s": {k: statistics.mean(tr[k] for tr in trace) for k in
+                           ("ref_waypoints_s", "build_probs_s", "solve_s", "roll_and_check_s",
+                            "mesh_refine_s", "host_s", "wall_s")} if trace else {},
           "bucket_first_replan": {"bucket": obstacle_bucket(masks),
                                   "bucket_culled": int(prob.hp.dpos.shape[-2]),
                                   "by_obstacle_count": by_count},
@@ -902,7 +919,7 @@ def graph_phases(torch, dev, probs8, probs40, out_dir, T=128):
     from armour_tpu_torch.planner.rotatotope import rotatotope_planner
     from armour_tpu_torch.problems import problem_set
     from armour_tpu_torch.robots.kinova import kinova_gen3_spec
-    from armour_tpu_torch.sim.agent import CONTROLLERS, TrajParams, TrueParams, rollout
+    from armour_tpu_torch.sim.agent import CONTROLLERS, TrajParams, TrueParams, rollout_plain
     from armour_tpu_torch.utils.graphs import CapturedStep
 
     spec = kinova_gen3_spec()
@@ -997,7 +1014,8 @@ def graph_phases(torch, dev, probs8, probs40, out_dir, T=128):
     emit({"phase": "graphs", "path": "consecutive_world_sets", "sets": 2, "equal_to_eager": consecutive})
     del graphed, eager_r, sets
 
-    # the RK4 step: 200 steps of every controller, f32 and f64
+    # the plain rollout's RK4 step (the rollout kernel's reference): 200 steps
+    # of every controller, f32 and f64
     sim = dataclasses.replace(SimConfig(), t_move=200 * SimConfig().plant_dt)
     rng = np.random.default_rng(0)
     nw = min(16, B)
@@ -1009,7 +1027,7 @@ def graph_phases(torch, dev, probs8, probs40, out_dir, T=128):
         for ctrl in CONTROLLERS:
             outs, secs, caps = {}, {}, {}
             for eager in (True, False):
-                outs[eager], secs[eager], _, caps[eager] = run(lambda: rollout(
+                outs[eager], secs[eager], _, caps[eager] = run(lambda: rollout_plain(
                     spec, sim, traj.q0, traj.qd0, traj, TrueParams(scale, scale), controller=ctrl,
                     device=dev, dtype=dtype, eager=eager))
             (qa, qda, la), (qg, qdg, lg) = outs[True], outs[False]
@@ -1269,6 +1287,148 @@ def comparison_phases(torch, dev, out_dir, cmp_argv=(), scaling_argv=("--product
           "device": table.get("device")})
 
 
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock, from nvidia-smi."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+# the rollout kernel against rollout_plain, the tolerances of
+# tests/test_torch_rollout_cuda.py: float64 end state 1e-9 and every log
+# field 1e-8 of its largest magnitude; float32 q 1e-4 rad, qd 1e-3 rad/s, u
+# 1e-3 of its largest magnitude
+ROLLOUT_FIELDS = ("q", "qd", "q_ref", "qd_ref", "u")
+
+
+def rollout_errors(got, ref) -> dict:
+    """Max |kernel - plain| of the end state and of each log field, and each
+    field's error over its largest magnitude (``<field>_rel``)."""
+    (qk, qdk, lk), (qp, qdp, lp) = got, ref
+    out = {"q_end": float((qk - qp).abs().max()), "qd_end": float((qdk - qdp).abs().max())}
+    for name in ROLLOUT_FIELDS:
+        a, b = getattr(lk, name), getattr(lp, name)
+        out[name] = float((a - b).abs().max())
+        out[name + "_rel"] = out[name] / max(float(b.abs().max()), 1e-30)
+    return out
+
+
+def rollout_within(e: dict, f64: bool) -> bool:
+    if f64:
+        return (e["q_end"] <= 1e-9 and e["qd_end"] <= 1e-9
+                and all(e[f + "_rel"] <= 1e-8 for f in ROLLOUT_FIELDS))
+    return (max(e["q_end"], e["q"], e["q_ref"]) <= 1e-4
+            and max(e["qd_end"], e["qd"], e["qd_ref"]) <= 1e-3 and e["u_rel"] <= 1e-3)
+
+
+def rollout_phase(torch, dev, rows, peak_bw, peak_f32, B=128, steps=200, move_steps=1000):
+    """Phase 3b, rollout_kernel: the rollout kernel (`csrc/rollout.cu`, one
+    launch per move) against ``rollout_plain`` on the same inputs and noise:
+    the five controllers x bernstein/orig x f32/f64 at ``steps`` steps and
+    the planar 2- and 6-link arms, at B worlds, with the battery's safety
+    flags equal; then the battery's move (robust, f32, ``move_steps`` steps,
+    with measurement noise) timed with CUDA events beside the plain version
+    (the graph of its step), with its bounds.  Fills ``rows["fused_rollout"]``."""
+    from armour_tpu_torch.config import PlannerConfig, SimConfig
+    from armour_tpu_torch.planner.armour import wrap_to_pi
+    from armour_tpu_torch.robots.kinova import kinova_gen3_spec
+    from armour_tpu_torch.robots.planar import planar_arm_spec
+    from armour_tpu_torch.sim import rollout_kernel as rk
+    from armour_tpu_torch.sim.agent import CONTROLLERS, TrajParams, TrueParams, rollout, rollout_plain
+    from armour_tpu_torch.sim.harness import _limits
+
+    f32, f64 = torch.float32, torch.float64
+    cfg = PlannerConfig()
+    kinova = kinova_gen3_spec()
+
+    def inputs(spec, n_steps, seed, dtype):
+        rng = np.random.default_rng(seed)
+        nf = spec.n_factors
+        q0, qd0 = rng.uniform(-1, 1, (B, nf)), rng.uniform(-0.3, 0.3, (B, nf))
+        traj = TrajParams(q0, qd0, rng.uniform(-0.5, 0.5, (B, nf)),
+                          rng.uniform(-1, 1, (B, nf)) * cfg.k_range, rng.uniform(0.0, 0.5, B))
+        scale = rng.uniform(*SimConfig().uncertain_mass_range, (B, spec.n_joints))
+        sim = dataclasses.replace(SimConfig(), t_move=n_steps * SimConfig().plant_dt)
+        noise = torch.as_tensor(rng.normal(scale=1e-4, size=(n_steps, 2, B, nf)), dtype=dtype,
+                                device=dev)
+        return (sim, q0, qd0, traj, TrueParams(scale, scale)), noise
+
+    def flags(spec, log):
+        lim = _limits(spec, log.q.dtype, log.q.device)
+        return torch.stack([
+            (log.u.abs() > lim.tlim + 1e-6).flatten(1).any(-1),
+            ((log.q < lim.pos_lb) | (log.q > lim.pos_ub)).flatten(1).any(-1)
+            | (log.qd.abs() > lim.spd + 1e-6).flatten(1).any(-1),
+            (wrap_to_pi(log.q - log.q_ref).abs() > lim.ub_pos + 1e-6).flatten(1).any(-1)
+            | ((log.qd - log.qd_ref).abs() > lim.ub_vel + 1e-6).flatten(1).any(-1)])
+
+    def both(spec, args, noise, controller, traj_type, dtype):
+        kw = dict(duration=1.0, noise=noise, controller=controller, traj_type=traj_type,
+                  device=dev, dtype=dtype)
+        rk.reset_launch_counts()
+        got = rollout(spec, *args, **kw)
+        torch.cuda.synchronize()
+        launches = rk.launch_counts()["fused_rollout"]
+        ref = rollout_plain(spec, *args, **kw)
+        torch.cuda.synchronize()
+        return got, ref, launches
+
+    cases = [(kinova, c, t, d) for c in CONTROLLERS for t in ("bernstein", "orig") for d in (f32, f64)]
+    # the planar arms start on their reference (t_offset 0): far from it the
+    # 6-link arm's stiff closed loop amplifies rounding by ~1e11 within 40
+    # steps in either version (tests/test_torch_rollout_cuda.py::test_planar_arms)
+    cases += [(planar_arm_spec(k), "robust", "bernstein", d) for k in (2, 6) for d in (f32, f64)]
+    worst = {}
+    for i, (spec, controller, traj_type, dtype) in enumerate(cases):
+        args, noise = inputs(spec, steps, i, dtype)
+        if spec.name != kinova.name:
+            args = (*args[:3], args[3]._replace(t_offset=np.zeros(B)), args[4])
+        got, ref, launches = both(spec, args, noise, controller, traj_type, dtype)
+        e = rollout_errors(got, ref)
+        same_flags = torch.equal(flags(spec, got[2]), flags(spec, ref[2]))
+        ok = launches == 1 and rollout_within(e, dtype == f64) and same_flags
+        emit({"phase": "rollout_kernel", "robot": spec.name, "controller": controller,
+              "traj_type": traj_type, "dtype": str(dtype)[6:], "worlds": B, "steps": steps,
+              "launches": launches, "errors": e, "safety_flags_equal": same_flags, "ok": ok})
+        assert ok, f"rollout kernel {spec.name} {controller} {traj_type} {dtype}: {e}, {launches}"
+        key = str(dtype)[6:]
+        worst[key] = max(worst.get(key, 0.0), max(v for k, v in e.items() if not k.endswith("_rel")))
+        del got, ref, noise
+
+    # the battery's move: robust, f32, 1,000 steps
+    args, noise = inputs(kinova, move_steps, 99, f32)
+    got, ref, launches = both(kinova, args, noise, "robust", "bernstein", f32)
+    e = rollout_errors(got, ref)
+    assert launches == 1 and rollout_within(e, False), f"rollout kernel, the move: {e}"
+    kw = dict(duration=1.0, noise=noise, controller="robust", device=dev, dtype=f32)
+    ms = time_ms(torch, lambda: rollout(kinova, *args, **kw), reps=10, warmup=2)
+    plain_ms = time_ms(torch, lambda: rollout_plain(kinova, *args, **kw), reps=3, warmup=1)
+    sim, q0, qd0, traj, true = args
+    on = lambda x: torch.as_tensor(x, dtype=f32, device=dev)  # noqa: E731
+    packed = rk.pack(kinova, on(q0), on(qd0), TrajParams(*map(on, traj)), TrueParams(*map(on, true)))
+    moved = nbytes(packed.spec, packed.ispec, packed.world, noise, got[0], got[1], *got[2][1:])
+    ops = rk.operation_count(kinova, "robust", "bernstein", move_steps, B)
+    b_mem, b_ops = moved / peak_bw * 1e3, ops / peak_f32 * 1e3
+    clock = sm_clock_hz()
+    chain_ms = rk.dependent_ops_per_step(kinova) * move_steps * 4 / clock * 1e3
+    rows["fused_rollout"] = {
+        "name": "fused_rollout", "wrapper": "fused_rollout", "route": "cuda",
+        "source": "armour_tpu_torch/csrc/rollout.cu", "replaces": "armour_tpu/sim/agent.py:236",
+        "launches": None, "max_abs_err_float32": max(v for k, v in e.items() if not k.endswith("_rel")),
+        "ms": ms, "plain_ms": plain_ms, "bytes": moved, "ops": ops,
+        "bound_ms": max(b_mem, b_ops), "bound_by": "bytes" if b_mem >= b_ops else "operations",
+        "library_ms": None, "chain_bound_ms": chain_ms,
+        "shapes": {"B": B, "steps": move_steps, "nf": kinova.n_factors},
+    }
+    emit({"phase": "rollout_kernel", "move": "robust, bernstein, float32, with noise", "worlds": B,
+          "steps": move_steps, "launches": launches, "errors": e, "ms_per_move": ms,
+          "plain_graph_ms_per_move": plain_ms, "bytes": moved, "ops": ops,
+          "bound_ms": rows["fused_rollout"]["bound_ms"], "bound_by": rows["fused_rollout"]["bound_by"],
+          "chain_bound_ms": chain_ms, "sm_clock_hz": clock,
+          "dependent_ops_per_step": rk.dependent_ops_per_step(kinova),
+          "max_abs_err_by_dtype": worst, "nvidia_smi": nvidia_smi()})
+
+
 def main() -> int:
     import torch
 
@@ -1293,6 +1453,7 @@ def main() -> int:
     from armour_tpu_torch.planner.armour import ArmourPlanner
     from armour_tpu_torch.problems import Q_HOME, problem_set
     from armour_tpu_torch.robots.kinova import kinova_gen3_spec
+    from armour_tpu_torch.sim import rollout_kernel as rk
     from armour_tpu_torch.sim.agent import TrajParams, TrueParams, rollout
     from armour_tpu_torch.sim.world import arm_collision_check
     from armour_tpu_torch.utils.graphs import CapturedStep
@@ -1316,21 +1477,30 @@ def main() -> int:
     # ---- 2. build --------------------------------------------------------
     from armour_tpu_torch.collision import mesh_oracle
 
-    with ThreadPoolExecutor(2) as pool:    # nvcc and g++ at once
+    with ThreadPoolExecutor(3) as pool:    # one nvcc per CUDA source and g++, all at once
         oracle_build = pool.submit(mesh_oracle.build)
+        rollout_build = pool.submit(rk.build, True)
         info = kernels.build(verbose=True)
         oracle_lib = oracle_build.result()
+        rinfo = rollout_build.result()
     with open(os.path.join(out_dir, "collision_bank_ptxas.txt"), "w") as f:
         f.write(info["log"])
+    with open(os.path.join(out_dir, "rollout_ptxas.txt"), "w") as f:
+        f.write(rinfo["log"])
     ptxas = kernels.ptxas_summary(info["log"])
-    spilling = [r for r in ptxas if r["spill_stores"] or r["spill_loads"]]
+    rptxas = kernels.ptxas_summary(rinfo["log"])
+    spilling = [r for r in ptxas + rptxas if r["spill_stores"] or r["spill_loads"]]
     emit({"phase": "build", "seconds": round(info["seconds"], 3), "built": info["built"],
           "library": os.path.relpath(info["path"]), "instantiations": len(ptxas),
           "registers_f32_offsets": {r["kernel"]: r["registers"] for r in ptxas if ",f32," in r["kernel"]},
           "max_registers": max((r["registers"] for r in ptxas), default=None), "spilling": spilling,
+          "rollout": {"seconds": round(rinfo["seconds"], 3), "built": rinfo["built"],
+                      "library": os.path.relpath(rinfo["path"]), "instantiations": len(rptxas),
+                      "registers": [r["registers"] for r in rptxas]},
           "mesh_oracle": os.path.relpath(oracle_lib),
           "mesh_oracle_openmp": oracle_lib == mesh_oracle.library_path(mesh_oracle.VARIANTS[0])})
     assert not info["built"] or (ptxas and not spilling), f"ptxas reports spills: {spilling}"
+    assert not rinfo["built"] or (len(rptxas) == 10 and not spilling), f"rollout ptxas: {rptxas}"
 
     spec = kinova_gen3_spec()
     cfg = PlannerConfig()
@@ -1473,6 +1643,10 @@ def main() -> int:
                        timed=False, table=small)
     del hp, A, c, dc, uniq
 
+    # ---- 3b. the rollout kernel against its plain version ---------------
+    rollout_phase(torch, dev, rows, peak_bw, peak_f32)
+    torch.cuda.empty_cache()
+
     rows["fused_collision_value_jac_multi"]["replaces"] = "armour_tpu/collision/pallas_kernel.py:166"
     rows[many_name]["replaces"] = "armour_tpu/collision/pallas_kernel.py:166"
     rows[wide_name]["replaces"] = "armour_tpu/collision/pallas_kernel.py:166"
@@ -1514,8 +1688,9 @@ def main() -> int:
 
     torch.cuda.reset_peak_memory_stats()
     res8, prob8, counts8 = run_point(probs8, "8obs")
-    for r in rows.values():
-        r["launches"] = counts8[r["wrapper"]]
+    for name, r in rows.items():
+        if name != "fused_rollout":     # its launches are the closed loop's (phase 6)
+            r["launches"] = counts8[r["wrapper"]]
     # one timed repetition here and three latency runs below: the modes,
     # the closed loop and the episodes further down take the time these
     # repetitions gave up
@@ -1634,9 +1809,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 6. plan and track: the closed loop on the 128 plans of phase 4 ---
-    # 200 RK4 steps (0.1 s of the move): the battery below runs the whole
-    # 1,000-step move, at B=100, and times it
-    sim = dataclasses.replace(SimConfig(), t_move=200 * SimConfig().plant_dt)
+    # the whole 1,000-step move (robust controller, RK4 at 5e-4 s) as ONE
+    # launch of the rollout kernel
+    sim = SimConfig()
     n_steps = int(round(sim.t_move / sim.plant_dt))
     rng_true = np.random.default_rng(0)
     true = TrueParams(rng_true.uniform(*sim.uncertain_mass_range, (B, spec.n_joints)),
@@ -1645,21 +1820,22 @@ def main() -> int:
     k8 = torch.where(feas8[:, None], res8.k, 0.0).double().cpu().numpy()   # infeasible: k = 0 brakes
     traj = TrajParams(probs8.q0, probs8.qd0, probs8.qdd0, cfg.k_range * k8, np.zeros(B))
     track_kw = dict(duration=cfg.duration, controller="robust", device=dev, dtype=torch.float32)
-    warm = dataclasses.replace(sim, t_move=10 * sim.plant_dt)
-    rollout(spec, warm, probs8.q0, probs8.qd0, traj, true, **track_kw)      # warm-up, 10 steps
-    t_roll, (q_end, qd_end, log) = wall(
-        torch, lambda: rollout(spec, sim, probs8.q0, probs8.qd0, traj, true, **track_kw), 1)
-    capture_ms = CapturedStep.last_capture_ms
+
+    def move():
+        return rollout(spec, sim, probs8.q0, probs8.qd0, traj, true, **track_kw)
+
+    move()                                                                   # warm-up
+    rk.reset_launch_counts()
+    t_roll, (q_end, qd_end, log) = wall(torch, move, 1)
+    track_launches = rk.launch_counts()["fused_rollout"]
+    assert track_launches == 1, f"track: {track_launches} rollout kernel launches per move"
+    rows["fused_rollout"]["launches"] = track_launches
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        t_traced, _ = wall(torch, lambda: rollout(spec, warm, probs8.q0, probs8.qd0, traj, true,
-                                                  **track_kw), 1)
+        t_traced, _ = wall(torch, move, 1)
     dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_s = sum(e.device_time for e in dev_events) * 1e-6
-    # host-side calls per step: a 20-step rollout against a 10-step one
-    warm20 = dataclasses.replace(sim, t_move=20 * sim.plant_dt)
-    calls = [count_tensor_calls(lambda s=s: rollout(spec, s, probs8.q0, probs8.qd0, traj, true, **track_kw))
-             for s in (warm, warm20)]
+    calls = count_tensor_calls(move)
     assert dev_events, "the profiler recorded no device activity"
     pos_err = (log.q - log.q_ref).abs().amax(dim=(1, 2))                    # (B,)
     vel_err = (log.qd - log.qd_ref).abs().amax(dim=(1, 2))
@@ -1674,12 +1850,11 @@ def main() -> int:
     hits = arm_collision_check(spec, log.q, obs_log).any(dim=1)             # (B,)
     assert not bool(hits[feas8].any()), "track: a feasible world's executed motion hits an obstacle"
     emit({"phase": "track", "batch": B, "steps": n_steps, "plant_dt": sim.plant_dt,
-          "controller": "robust", "dtype": "float32", "seconds_per_rollout": t_roll,
-          "ms_per_rk4_step": t_roll / n_steps * 1e3, "capture_ms": capture_ms,
-          "kernel_launches_per_step": len(dev_events) / 10,
-          "host_tensor_calls_per_step": (calls[1] - calls[0]) / 10,
-          "traced_10_steps": {"wall_s": t_traced, "device_busy_s": busy_s,
-                              "device_idle_share": 1.0 - busy_s / t_traced},
+          "controller": "robust", "dtype": "float32", "seconds_per_move": t_roll,
+          "ms_per_move": t_roll * 1e3, "rollout_kernel_launches": track_launches,
+          "device_kernels_per_move": len(dev_events), "host_tensor_calls_per_move": calls,
+          "traced_move": {"wall_s": t_traced, "device_busy_s": busy_s,
+                          "device_idle_share": 1.0 - busy_s / t_traced},
           "max_pos_err": float(pos_err.max()), "qe": spec.qe,
           "max_vel_err": float(vel_err.max()), "vel_bound": 2 * spec.ultimate_bound,
           "feasible_worlds": int(feas8.sum()), "collisions_feasible": int(hits[feas8].sum()),
@@ -1736,12 +1911,16 @@ def main() -> int:
     traj4 = TrajParams(probs4.q0, probs4.qd0, probs4.qdd0,
                        cfg.k_range * np.random.default_rng(4).uniform(-1.0, 1.0, (4, n)), np.zeros(4))
     true4 = TrueParams(true.mass_scale[:4], true.inertia_scale[:4])
+    # the card's rollout is the kernel, the CPU's the plain version
+    rk.reset_launch_counts()
     ends = [rollout(spec, sim20, probs4.q0, probs4.qd0, traj4, true4, duration=cfg.duration,
                     device=d, dtype=torch.float64)[0].cpu() for d in (dev, "cpu")]
+    assert rk.launch_counts()["fused_rollout"] == 1, rk.launch_counts()
     end_diff = float((ends[0] - ends[1]).abs().max())
     assert end_diff <= 1e-9, f"rollout: |q_end card - q_end CPU| = {end_diff}"
     emit({"phase": "card_vs_cpu", "path": "rollout", "worlds": 4, "steps": 20,
-          "dtype": "float64", "max_abs_q_end_diff": end_diff, "atol": 1e-9})
+          "dtype": "float64", "max_abs_q_end_diff": end_diff, "atol": 1e-9,
+          "card_rollout_kernel_launches": 1})
 
     # ---- 8-10. self-intersection, its card-vs-CPU parity, scale-out --------
     del res8, prob8
@@ -1770,7 +1949,7 @@ def main() -> int:
 
     # ---- tail ------------------------------------------------------------
     order = ("fused_collision_value_jac_multi", "fused_collision_values_multi",
-             "fused_collision_value_jac", pool_name, many_name, wide_name, batch1_row, *ext_rows,
+             "fused_collision_value_jac", "fused_rollout", pool_name, many_name, wide_name, batch1_row, *ext_rows,
              battery_row, *tool_rows)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

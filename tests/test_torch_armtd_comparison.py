@@ -98,3 +98,72 @@ def test_halves_merge_into_an_existing_out(tmp_path, monkeypatch):
     got = run_armtd_comparison.main(["--device", "cpu", "--halves", "armour", "--out", out])
     assert [g["traj_type"] for g in got.values()] == ["bernstein", "orig"]
     assert len(calls) == 2 and all(a[a.index("--device") + 1] == "cpu" for a in calls)
+
+
+def _record(traj_type, worlds, complete=None, wall=10.0):
+    """A run_worlds record of the given (name, goal, stopped, iterations) rows."""
+    rows = [dict(world=name, iterations=its, n_feasible_plans=its - 1, goal_reached=goal,
+                 collision=False, torque_violation=False, joint_limit_violation=name.endswith("9"),
+                 ultimate_bound_violation=False, stopped=stop, jl_overshoot=-0.1)
+            for name, goal, stop, its in worlds]
+    d = {"protocol": {"hlp": "straight"}, "traj_type": traj_type, "max_iterations": 500,
+         "wall_seconds": wall, "device": "cpu", "worlds": rows}
+    if complete is not None:
+        d.update(complete=complete, iterations_run=120)
+    return d
+
+
+def test_join_world_subsets(tmp_path):
+    """Disjoint ``--worlds`` subsets run side by side join into one record
+    per half (``run_worlds --join``): rows sorted by world, totals
+    recounted, the longest wall, and ``complete`` only when every part ran
+    to its end; a comparison's halves join name by name."""
+    a = _record("bernstein", [("w3", True, False, 40), ("w1", False, True, 12)], wall=30.0)
+    b = _record("bernstein", [("w2", True, False, 90), ("w9", False, False, 500)])
+    c = _record("orig", [("w1", True, False, 20), ("w2", False, False, 200)], complete=False)
+    paths = []
+    for i, d in enumerate(({"armour": a}, {"armour": b}, {"armtd": c}, c)):
+        paths.append(str(tmp_path / f"p{i}.json"))
+        with open(paths[-1], "w") as f:
+            json.dump(d, f)
+    out = str(tmp_path / "cmp.json")
+    got = run_worlds.main(["--join", *paths[:3], "--out", out])
+    with open(out) as f:
+        assert json.load(f) == got
+    assert list(got) == ["armour", "armtd"]
+    armour, armtd = got["armour"], got["armtd"]
+    assert [r["world"] for r in armour["worlds"]] == ["w1", "w2", "w3", "w9"]
+    assert (armour["n_worlds"], armour["goal_reached"], armour["success"]) == (4, 2, 2)
+    assert (armour["stopped_safely"], armour["joint_limit_violation"]) == (1, 1)
+    assert armour["mean_iterations"] == (12 + 90 + 40 + 500) / 4
+    assert armour["wall_seconds"] == 30.0 and armour["complete"] is True
+    assert [p["worlds"] for p in armour["parts"]] == [["w3", "w1"], ["w2", "w9"]]
+    assert armtd["complete"] is False and armtd["parts"][0]["iterations_run"] == 120
+    joined = run_worlds.main(["--join", paths[3], "--out", str(tmp_path / "orig.json")])
+    assert joined == armtd
+    with pytest.raises(ValueError, match="overlap"):
+        run_worlds.join([a, a])
+    with pytest.raises(ValueError, match="mix"):
+        run_worlds.join_files(paths[2:])
+
+
+def test_battery_table_holds_world_by_world():
+    """`battery_table` on the JAX package's two committed self-generated
+    batteries: every world in one cell, the goal row and column summing to
+    each record's goal count, the off-diagonal worlds listed by cell."""
+    from armour_tpu_torch import battery_table
+
+    r4, r5 = (os.path.join(ROOT, "results", f"r{i}_100worlds_selfgen.json") for i in (4, 5))
+    got = battery_table.main([r4, r5])
+    with open(r4) as f:
+        a = json.load(f)
+    with open(r5) as f:
+        b = json.load(f)
+    t = got["table"]
+    assert got["worlds"] == 100 and sum(sum(row.values()) for row in t.values()) == 100
+    assert sum(t["goal"].values()) == a["goal_reached"]
+    assert sum(t[x]["goal"] for x in t) == b["goal_reached"]
+    assert sum(t["stop"].values()) == sum(r["stopped"] and not r["goal_reached"] for r in a["worlds"])
+    off = sum(len(ws) for ws in got["off_diagonal"].values())
+    assert off == 100 - sum(t[x][x] for x in t)
+    assert got["safety"][1] == {k: b[k] for k in battery_table.SAFETY}

@@ -1,5 +1,5 @@
-"""The CUDA graphs of the solver iteration and of the RK4 step against the
-same steps run op by op, on the card.
+"""The CUDA graphs of the solver iteration and of the RK4 step of
+``rollout_plain`` against the same steps run op by op, on the card.
 
 Runs only where a CUDA device is present (marker ``cuda``; elsewhere each
 test skips).  This file imports no JAX, so it runs on a machine without it:
@@ -27,7 +27,7 @@ from armour_tpu_torch.planner.armour import ArmourPlanner
 from armour_tpu_torch.planner.rotatotope import rotatotope_planner
 from armour_tpu_torch.problems import Q_HOME, problem_set
 from armour_tpu_torch.robots.kinova import kinova_gen3_spec
-from armour_tpu_torch.sim.agent import CONTROLLERS, TrajParams, TrueParams, rollout
+from armour_tpu_torch.sim.agent import CONTROLLERS, TrajParams, TrueParams, rollout_plain
 from armour_tpu_torch.utils.graphs import CapturedStep
 
 pytestmark = pytest.mark.cuda
@@ -141,8 +141,8 @@ def test_graphed_rollout_equals_eager_to_the_bit(card, controller, dtype):
     scale = rng.uniform(0.9, 1.1, (n, 7))
     sim = dataclasses.replace(SimConfig(), t_move=200 * SimConfig().plant_dt)
     noise = torch.as_tensor(rng.normal(scale=1e-4, size=(200, 2, n, 7)), dtype=dtype, device=card)
-    runs = [rollout(SPEC, sim, q0, qd0, traj, TrueParams(scale, scale), controller=controller,
-                    noise=noise, device=card, dtype=dtype, eager=eager) for eager in (True, False)]
+    runs = [rollout_plain(SPEC, sim, q0, qd0, traj, TrueParams(scale, scale), controller=controller,
+                          noise=noise, device=card, dtype=dtype, eager=eager) for eager in (True, False)]
     (qa, qda, la), (qb, qdb, lb) = runs
     assert _same(qa, qb) and _same(qda, qdb)
     for name in la._fields:
@@ -226,7 +226,7 @@ def test_repeated_plans_and_rollouts_hold_no_memory(card):
 
     def once():
         pl.plan_batch(*args)
-        rollout(SPEC, sim, args[0], args[1], traj, TrueParams(ones, ones), device=card)
+        rollout_plain(SPEC, sim, args[0], args[1], traj, TrueParams(ones, ones), device=card)
         torch.cuda.synchronize()
 
     once()
