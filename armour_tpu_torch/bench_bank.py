@@ -40,6 +40,12 @@ from .robots.kinova import kinova_gen3_spec
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM5, NVIDIA's data sheet
 
 
+def nvidia_smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
 def time_ms(fn, reps: int, warmup: int = 3) -> float:
     """Median CUDA-event time of one call, after a warm-up."""
     for _ in range(warmup):
@@ -69,8 +75,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("bench_bank: no CUDA device is available", file=sys.stderr)
         return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
+    smi = nvidia_smi()
 
     builds = [("tree", kernels.SOURCE, ())]
     for item in args.other:

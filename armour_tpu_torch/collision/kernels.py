@@ -172,9 +172,10 @@ def build(verbose: bool = False, source: Path = SOURCE, extra_flags: tuple = ())
 
 
 def ptxas_summary(log: str) -> list:
-    """One row per kernel of a ``-Xptxas -v`` log: {"kernel",
-    "registers", "spill_stores", "spill_loads"} (bytes per thread), the
-    instantiations of ``bank_pass`` under a readable name."""
+    """One row per kernel of a ``-Xptxas -v`` log: {"kernel", "registers",
+    "spill_stores", "spill_loads", "smem_bytes", "barriers"} (spills in bytes
+    per thread, shared memory in bytes per block), the instantiations of
+    ``bank_pass`` and ``rollout_kernel`` under a readable name."""
     rows, name, spill = [], None, (0, 0)
     types = {"13__nv_bfloat16": "bf16", "f": "f32", "d": "f64"}
     for line in log.splitlines():
@@ -184,11 +185,18 @@ def ptxas_summary(log: str) -> list:
             if m:  # bank_pass<A type, offsets' type, start bound, with Jacobian>
                 name = (f"bank_pass<{types[m[1]]},{types[m[2]]},S<={m[3]},"
                         f"{'value+jac' if m[4] == '1' else 'values'}>")
+            m = re.search(r"rollout_kernelI(f|d)Li(\d+)E", name)
+            if m:  # rollout_kernel<scalar, template integer>
+                name = f"rollout_kernel<{types[m[1]]},{m[2]}>"
         elif "bytes spill stores" in line:
             spill = tuple(int(x) for x in re.findall(r"(\d+) bytes spill", line))
         elif "Used" in line and "registers" in line and name:
+            smem = re.search(r"(\d+) bytes smem", line)
+            bars = re.search(r"used (\d+) barriers", line)
             rows.append({"kernel": name, "registers": int(line.split("Used")[1].split()[0]),
-                         "spill_stores": spill[0], "spill_loads": spill[1]})
+                         "spill_stores": spill[0], "spill_loads": spill[1],
+                         "smem_bytes": int(smem[1]) if smem else 0,
+                         "barriers": int(bars[1]) if bars else None})
             name, spill = None, (0, 0)
     return rows
 

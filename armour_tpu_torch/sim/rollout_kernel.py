@@ -9,6 +9,14 @@ version is `sim/agent.py::rollout_plain` (on a card, one CUDA graph of the
 step replayed ``n_steps`` times); `sim/agent.py::rollout` takes this kernel
 for CUDA tensors and the plain version for CPU tensors.
 
+The kernel runs one block of eight warps per world (the state, the bias
+rows, the mass matrix, the controller's passes; the source's header
+comment has the layout).  It is compiled once for each chain in
+``SPECIALISED`` (a joint count equal to the actuated joint count: the
+Kinova), with the joint count a compile-time constant, and once with a
+run-time joint count for any other chain (``instantiation`` says which a
+spec takes).
+
 ``pack`` lays the spec constants, the true parameters, the state and the
 trajectory out in the flat buffers the kernel reads (layout: the source's
 header comment, mirrored by the constants below and checked against the
@@ -43,6 +51,9 @@ from armour_tpu_torch.sim.agent import CONTROLLERS, RolloutLog, TrajParams, True
 SOURCE = Path(kernels.__file__).resolve().parents[1] / "csrc" / "rollout.cu"
 
 MAXJ = 16  # bodies of the chain, fixed ones included (rollout.cu MAXJ)
+SPECIALISED = (7,)  # joint counts with an instantiation of their own (rollout.cu)
+INSTANTIATIONS = 2 * (len(SPECIALISED) + 1)  # float32 and float64, and the run-time one
+THREADS = 256  # one block of eight warps per world (rollout.cu THREADS)
 
 OFF_FIXED = 0
 OFF_TRANS = OFF_FIXED + (MAXJ + 1) * 9
@@ -72,6 +83,14 @@ class Packed(NamedTuple):
     world: torch.Tensor
     lead: tuple
     nf: int
+
+
+def instantiation(spec: RobotSpec) -> int:
+    """The joint count of the kernel instantiation ``spec`` takes: its own
+    when it is in ``SPECIALISED`` (and every joint is actuated), else 0, the
+    instantiation with a run-time joint count."""
+    n = spec.n_joints
+    return n if n == spec.n_factors and n in SPECIALISED else 0
 
 
 def check_joint_bound(spec: RobotSpec):
@@ -257,14 +276,15 @@ def bind(path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     lib.armour_rollout_layout.argtypes = [ptr]
-    lib.armour_rollout.argtypes = [i32, i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
-                                   f64, f64, f64, f64, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr]
+    lib.armour_rollout.argtypes = [i32, i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
+                                   i32, f64, f64, f64, f64, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+                                   ptr]
     lib.armour_rollout_layout.restype = lib.armour_rollout.restype = i32
-    layout = (ctypes.c_int * 4)()
+    want = (MAXJ, SPEC_LEN, ISPEC_LEN, WORLD_LEN, THREADS, *SPECIALISED)
+    layout = (ctypes.c_int * len(want))()
     lib.armour_rollout_layout(ctypes.cast(layout, ctypes.c_void_p))
-    if tuple(layout) != (MAXJ, SPEC_LEN, ISPEC_LEN, WORLD_LEN):
-        raise RuntimeError(f"{path}: buffer layout {tuple(layout)} differs from the wrapper's "
-                           f"{(MAXJ, SPEC_LEN, ISPEC_LEN, WORLD_LEN)}")
+    if tuple(layout) != want:
+        raise RuntimeError(f"{path}: buffer layout {tuple(layout)} differs from the wrapper's {want}")
     return lib
 
 
@@ -332,8 +352,8 @@ def fused_rollout(spec: RobotSpec, sim: SimConfig, q, qd, traj: TrajParams,
         _DTYPE_CODE[dtype], CONTROLLERS.index(controller), packed.spec.data_ptr(),
         packed.ispec.data_ptr(), packed.world.data_ptr(),
         None if noise is None else noise.data_ptr(), None if gains is None else gains.data_ptr(),
-        B, n_steps, log_every, n_knots, dt, dt / sim.check_dt, float(duration), float(sim.t_move),
-        int(traj_type == "orig"), q_end.data_ptr(), qd_end.data_ptr(),
+        B, spec.n_joints, nf, n_steps, log_every, n_knots, dt, dt / sim.check_dt, float(duration),
+        float(sim.t_move), int(traj_type == "orig"), q_end.data_ptr(), qd_end.data_ptr(),
         *(logs[j].data_ptr() for j in range(5)), torch.cuda.current_stream(dev).cuda_stream)
     kernels._raise_on(err, "armour_rollout")
     t = torch.tensor([i * dt for i in range(0, n_steps, log_every)], dtype=dtype, device=dev)

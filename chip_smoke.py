@@ -19,12 +19,16 @@ Phases (each prints one JSON line; any failure exits non-zero):
               at a slab whose rows are not 16-byte aligned (direct path)
  3b. rollout_kernel
               the rollout kernel (csrc/rollout.cu: the whole move in one
-              launch) against rollout_plain on the same inputs and noise,
-              B=128, 200 steps: five controllers x bernstein/orig x f32/f64
-              and the planar 2- and 6-link arms, one launch each, the safety
-              flags equal; then the battery's move (robust, f32, 1,000 steps)
-              timed with CUDA events beside the plain version's graph, with
-              its bounds (operations, and the chain of dependent operations)
+              launch, one block of eight warps per world) against
+              rollout_plain on the same inputs and noise, B=128, 200 steps:
+              five controllers x bernstein/orig x f32/f64 and the planar 2-
+              and 6-link arms, one launch each, the safety flags equal; then
+              the battery's move (robust, f32, 1,000 steps) timed with CUDA
+              events beside the plain version's graph, with its bounds
+              (operations, and the chain of dependent operations); the same
+              move at B=128 and 100 in f32 and f64 (f64 at B=128 also held
+              to the plain version), with each instantiation's registers,
+              spills and shared memory from the build
   4. main     ArmourPlanner.plan_batch at B=128, T=128, 8 obstacles: time,
               feasibility and kernel launches per plan; then the 40-obstacle
               point; then latency_batch1: plan() through its program kept
@@ -1321,14 +1325,19 @@ def rollout_within(e: dict, f64: bool) -> bool:
             and max(e["qd_end"], e["qd"], e["qd_ref"]) <= 1e-3 and e["u_rel"] <= 1e-3)
 
 
-def rollout_phase(torch, dev, rows, peak_bw, peak_f32, B=128, steps=200, move_steps=1000):
+def rollout_phase(torch, dev, rows, peak_bw, peak_f32, B=128, steps=200, move_steps=1000,
+                  move_batches=(128, 100), ptxas_rows=()):
     """Phase 3b, rollout_kernel: the rollout kernel (`csrc/rollout.cu`, one
     launch per move) against ``rollout_plain`` on the same inputs and noise:
     the five controllers x bernstein/orig x f32/f64 at ``steps`` steps and
     the planar 2- and 6-link arms, at B worlds, with the battery's safety
     flags equal; then the battery's move (robust, f32, ``move_steps`` steps,
     with measurement noise) timed with CUDA events beside the plain version
-    (the graph of its step), with its bounds.  Fills ``rows["fused_rollout"]``."""
+    (the graph of its step), with its bounds; then the move at each of
+    ``move_batches`` in float32 and float64, timed (float64 at B also held
+    to the plain version).  ``ptxas_rows`` (the build's per-instantiation
+    registers, spills and shared memory) go into the row.  Fills
+    ``rows["fused_rollout"]``."""
     from armour_tpu_torch.config import PlannerConfig, SimConfig
     from armour_tpu_torch.planner.armour import wrap_to_pi
     from armour_tpu_torch.robots.kinova import kinova_gen3_spec
@@ -1341,7 +1350,7 @@ def rollout_phase(torch, dev, rows, peak_bw, peak_f32, B=128, steps=200, move_st
     cfg = PlannerConfig()
     kinova = kinova_gen3_spec()
 
-    def inputs(spec, n_steps, seed, dtype):
+    def inputs(spec, n_steps, seed, dtype, B=B):
         rng = np.random.default_rng(seed)
         nf = spec.n_factors
         q0, qd0 = rng.uniform(-1, 1, (B, nf)), rng.uniform(-0.3, 0.3, (B, nf))
@@ -1411,6 +1420,22 @@ def rollout_phase(torch, dev, rows, peak_bw, peak_f32, B=128, steps=200, move_st
     b_mem, b_ops = moved / peak_bw * 1e3, ops / peak_f32 * 1e3
     clock = sm_clock_hz()
     chain_ms = rk.dependent_ops_per_step(kinova) * move_steps * 4 / clock * 1e3
+    # the move at each width and in both types: one block of eight warps per world
+    moves_ms = {}
+    for dtype in (f32, f64):
+        for b_move in move_batches:
+            key = f"{str(dtype)[6:]}_B{b_move}"
+            m_args, m_noise = inputs(kinova, move_steps, 99, dtype, B=b_move)
+            m_kw = dict(duration=1.0, noise=m_noise, controller="robust", device=dev, dtype=dtype)
+            moves_ms[key] = time_ms(torch, lambda: rollout(kinova, *m_args, **m_kw), reps=10,
+                                    warmup=2)
+            if dtype == f64 and b_move == B:
+                m_got, m_ref, m_launches = both(kinova, m_args, m_noise, "robust", "bernstein", f64)
+                m_err = rollout_errors(m_got, m_ref)
+                assert m_launches == 1 and rollout_within(m_err, True), f"the f64 move: {m_err}"
+                worst["float64_move"] = max(v for k, v in m_err.items() if not k.endswith("_rel"))
+                del m_got, m_ref
+            del m_noise
     rows["fused_rollout"] = {
         "name": "fused_rollout", "wrapper": "fused_rollout", "route": "cuda",
         "source": "armour_tpu_torch/csrc/rollout.cu", "replaces": "armour_tpu/sim/agent.py:236",
@@ -1419,6 +1444,8 @@ def rollout_phase(torch, dev, rows, peak_bw, peak_f32, B=128, steps=200, move_st
         "bound_ms": max(b_mem, b_ops), "bound_by": "bytes" if b_mem >= b_ops else "operations",
         "library_ms": None, "chain_bound_ms": chain_ms,
         "shapes": {"B": B, "steps": move_steps, "nf": kinova.n_factors},
+        "block": {"threads": rk.THREADS, "warps": rk.THREADS // 32, "blocks": B},
+        "moves_ms": moves_ms, "ptxas": list(ptxas_rows),
     }
     emit({"phase": "rollout_kernel", "move": "robust, bernstein, float32, with noise", "worlds": B,
           "steps": move_steps, "launches": launches, "errors": e, "ms_per_move": ms,
@@ -1426,6 +1453,8 @@ def rollout_phase(torch, dev, rows, peak_bw, peak_f32, B=128, steps=200, move_st
           "bound_ms": rows["fused_rollout"]["bound_ms"], "bound_by": rows["fused_rollout"]["bound_by"],
           "chain_bound_ms": chain_ms, "sm_clock_hz": clock,
           "dependent_ops_per_step": rk.dependent_ops_per_step(kinova),
+          "block": rows["fused_rollout"]["block"], "moves_ms": moves_ms,
+          "ptxas": rows["fused_rollout"]["ptxas"],
           "max_abs_err_by_dtype": worst, "nvidia_smi": nvidia_smi()})
 
 
@@ -1496,11 +1525,12 @@ def main() -> int:
           "max_registers": max((r["registers"] for r in ptxas), default=None), "spilling": spilling,
           "rollout": {"seconds": round(rinfo["seconds"], 3), "built": rinfo["built"],
                       "library": os.path.relpath(rinfo["path"]), "instantiations": len(rptxas),
-                      "registers": [r["registers"] for r in rptxas]},
+                      "ptxas": rptxas},
           "mesh_oracle": os.path.relpath(oracle_lib),
           "mesh_oracle_openmp": oracle_lib == mesh_oracle.library_path(mesh_oracle.VARIANTS[0])})
     assert not info["built"] or (ptxas and not spilling), f"ptxas reports spills: {spilling}"
-    assert not rinfo["built"] or (len(rptxas) == 10 and not spilling), f"rollout ptxas: {rptxas}"
+    assert not rinfo["built"] or (len(rptxas) == rk.INSTANTIATIONS and not spilling), \
+        f"rollout ptxas: {rptxas}"
 
     spec = kinova_gen3_spec()
     cfg = PlannerConfig()
@@ -1644,7 +1674,7 @@ def main() -> int:
     del hp, A, c, dc, uniq
 
     # ---- 3b. the rollout kernel against its plain version ---------------
-    rollout_phase(torch, dev, rows, peak_bw, peak_f32)
+    rollout_phase(torch, dev, rows, peak_bw, peak_f32, ptxas_rows=rptxas)
     torch.cuda.empty_cache()
 
     rows["fused_collision_value_jac_multi"]["replaces"] = "armour_tpu/collision/pallas_kernel.py:166"

@@ -31,7 +31,7 @@ from armour_tpu_torch.robots.kinova import kinova_gen3_spec
 from armour_tpu_torch.robots.planar import planar_arm_spec
 from armour_tpu_torch.sim.agent import CONTROLLERS, TrajParams, TrueParams, rollout, rollout_plain
 from armour_tpu_torch.sim.harness import _limits
-from armour_tpu_torch.sim.rollout_kernel import fused_rollout
+from armour_tpu_torch.sim.rollout_kernel import fused_rollout, instantiation
 
 pytestmark = pytest.mark.cuda
 
@@ -142,6 +142,28 @@ def test_planar_arms(card, n_links, dtype):
     plain version itself, so neither version would be a reference there."""
     spec = planar_arm_spec(n_links)
     sim, q0, qd0, traj, true, noise = moves(spec, 32, 200, seed=n_links, dtype=dtype)
+    traj = traj._replace(t_offset=np.zeros(32))
+    got, ref = run_both(spec, sim, q0, qd0, traj, true, noise, "robust", "bernstein", dtype, card)
+    check(spec, got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_more_worlds_than_sms(card, dtype):
+    """B = 256: more blocks than the H100's 132 SMs, so blocks share SMs and
+    run in more than one wave."""
+    sim, q0, qd0, traj, true, noise = moves(SPEC, 256, 200, seed=5, dtype=dtype)
+    got, ref = run_both(SPEC, sim, q0, qd0, traj, true, noise, "robust", "bernstein", dtype, card)
+    check(SPEC, got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_chain_of_the_run_time_instantiation(card, dtype):
+    """The planar 4-link arm has no instantiation of its own: the kernel
+    with a run-time joint count (started on its reference, as the planar
+    arms above)."""
+    spec = planar_arm_spec(4)
+    assert instantiation(spec) == 0
+    sim, q0, qd0, traj, true, noise = moves(spec, 32, 200, seed=4, dtype=dtype)
     traj = traj._replace(t_offset=np.zeros(32))
     got, ref = run_both(spec, sim, q0, qd0, traj, true, noise, "robust", "bernstein", dtype, card)
     check(spec, got, ref, dtype)

@@ -2,16 +2,25 @@
 
 - ``pack`` lays out the spec constants, the true parameters and the iLQR
   gains so that ``unpack_spec`` / ``unpack_world`` give them back exactly,
-  for the Kinova and the planar 2- and 6-link arms.
+  for the Kinova and the planar 2-, 4- and 6-link arms.
+- Each chain's kernel instantiation, and the move's operation count and
+  chain of dependent operations (the bound), pinned; `bench_rollout`'s
+  variants of the source find the statements they change.
 - ``rollout`` on the CPU is ``rollout_plain`` to the bit and launches
   nothing; a CUDA request without a card raises, and the kernel's wrapper
   never runs on CPU tensors (no fallback); a chain longer than the kernel's
   compile-time joint bound raises.
 - The kernel source itself, compiled by the host compiler through a shim
-  that runs each block's 32 lanes as threads and ``__syncwarp`` as a
-  barrier, against ``rollout_plain`` on the CPU (the kernel has no
-  interpret mode; on the card `tests/test_torch_rollout_cuda.py` holds the
-  real build).  Float64 within 1e-12 on the end state and 1e-10 of each log
+  that runs each block's eight warps as 256 fibers on one host thread (a
+  fiber runs until it waits at a barrier), the block's named barriers
+  (``bar_sync`` / ``bar_arrive``) and each warp's ``__syncwarp`` as
+  barriers and ``__shfl_sync`` through a per-warp exchange row, against
+  ``rollout_plain`` on the CPU (the kernel has no interpret mode; on the
+  card `tests/test_torch_rollout_cuda.py` holds the real build): the
+  Kinova through its own instantiation, the planar 2-, 4- and 6-link arms
+  through the run-time one.  A launch whose threads all wait fails with an
+  error instead of ending the process.  Float64
+  within 1e-12 on the end state and 1e-10 of each log
   field's largest magnitude, float32 within 1e-5 rad and 1e-4 rad/s and 1e-4
   of the torques' largest magnitude: the host compiler forms no FMAs, so the
   two differ in the order of a few sums only.
@@ -29,6 +38,7 @@ import numpy as np
 import pytest
 import torch
 
+from armour_tpu_torch import bench_rollout
 from armour_tpu_torch.config import PlannerConfig, SimConfig
 from armour_tpu_torch.control.ilqr import tvlqr_gain_schedule
 from armour_tpu_torch.dynamics.rnea import link_constants
@@ -45,7 +55,7 @@ from armour_tpu_torch.sim.agent import (
 )
 
 SPECS = {"kinova": kinova_gen3_spec, "planar2": lambda: planar_arm_spec(2),
-         "planar6": lambda: planar_arm_spec(6)}
+         "planar6": lambda: planar_arm_spec(6), "planar4": lambda: planar_arm_spec(4)}
 STEP = SimConfig().plant_dt
 
 
@@ -158,6 +168,34 @@ def test_joint_bound_raises():
     rk.pack(planar_arm_spec(rk.MAXJ), *_inputs(planar_arm_spec(rk.MAXJ))[:4])
 
 
+def test_each_chain_takes_its_instantiation():
+    """The Kinova takes the kernel compiled for its joint count; any other
+    chain the one with a run-time joint count."""
+    assert [rk.instantiation(SPECS[k]()) for k in ("kinova", "planar2", "planar6", "planar4")] \
+        == [7, 0, 0, 0]
+    assert rk.SPECIALISED == (7,) and rk.INSTANTIATIONS == 4
+
+
+def test_the_bound_does_not_move_with_the_design():
+    """The yardstick of the move: the operations of the Kinova's robust
+    Bezier move (44,730 per world and step) and its chain of dependent
+    operations per step (1,205) count the work, whatever the layout."""
+    spec = kinova_gen3_spec()
+    assert rk.operation_count(spec, "robust", "bernstein", 1000, 128) == 44_730 * 1000 * 128
+    assert rk.dependent_ops_per_step(spec) == 1205
+
+
+def test_bench_rollout_variants_find_their_statements():
+    """`bench_rollout`'s copies of the source (the clock64() probes after
+    fixed statements, the Kinova's launch taken out) find each statement
+    once in the tree's source, so that a card call does not fail on them."""
+    src = rk.SOURCE.read_text()
+    probed = bench_rollout.probed_source(src)
+    assert all(f"ARMOUR_PROBE({k});" in probed for k in range(len(bench_rollout.PROBES)))
+    run_time = bench_rollout.run_time_source(src)
+    assert "rollout_kernel<S, 7><<<" not in run_time and "rollout_kernel<S, 0><<<" in run_time
+
+
 # ---------------------------------------------------------------------------
 # the kernel source on the host compiler
 # ---------------------------------------------------------------------------
@@ -165,58 +203,158 @@ def test_joint_bound_raises():
 _SHIM = r"""
 #pragma once
 #include <cmath>
-#include <cstdlib>
 #include <cstddef>
+#include <cstdlib>
 #include <functional>
-#include <pthread.h>
-#include <thread>
+#include <ucontext.h>
 #include <vector>
 using std::min;
 using namespace std;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 struct dim_t { int x; };
-extern thread_local dim_t threadIdx, blockIdx;
-extern pthread_barrier_t emu_barrier;
-inline void __syncwarp() { pthread_barrier_wait(&emu_barrier); }
-inline int cudaGetLastError() { return 0; }
+// A block's threads run as fibers on one host thread, in turn: a thread runs
+// until it waits at a barrier (or ends), then the next one that can run does.
+struct emu_block_t {
+  int threads = 0, cur = 0, deadlock = 0;
+  std::vector<ucontext_t> ctx;
+  std::vector<char> waiting, done;
+  std::vector<char> stacks;
+  ucontext_t host;
+  std::function<void()> fn;
+};
+extern dim_t threadIdx, blockIdx;
+extern emu_block_t emu;
+inline void emu_next() {  // hand the host thread to the next thread that can run
+  const int me = emu.cur;
+  for (int k = 1; k <= emu.threads; ++k) {
+    const int t = (me + k) % emu.threads;
+    if (emu.waiting[t] || emu.done[t]) continue;
+    if (t == me) return;
+    emu.cur = threadIdx.x = t;
+    if (emu.done[me]) setcontext(&emu.ctx[t]);
+    swapcontext(&emu.ctx[me], &emu.ctx[t]);
+    return;
+  }
+  for (int t = 0; t < emu.threads; ++t)
+    if (!emu.done[t]) emu.deadlock = 1;  // every thread waits: the launch fails
+  setcontext(&emu.host);
+}
+// a barrier of the block: its phase ends when `count` threads have arrived;
+// an arriving thread waits for that (bar.sync) or goes on (bar.arrive)
+struct emu_barrier_t {
+  int arrived = 0;
+  std::vector<int> waiters;
+  void arrive(int count, bool wait) {
+    if (++arrived == count) {
+      arrived = 0;
+      for (int t : waiters) emu.waiting[t] = 0;
+      waiters.clear();
+      return;
+    }
+    if (!wait) return;
+    waiters.push_back(emu.cur);
+    emu.waiting[emu.cur] = 1;
+    emu_next();
+  }
+};
+extern emu_barrier_t emu_bar[16], emu_warp_bar[32];
+extern double emu_lanes[32][32];  // per warp, the exchange row of __shfl_sync
+template <int ID, int COUNT> inline void bar_sync() { emu_bar[ID].arrive(COUNT, true); }
+template <int ID, int COUNT> inline void bar_arrive() { emu_bar[ID].arrive(COUNT, false); }
+inline void __syncthreads() { emu_bar[0].arrive(emu.threads, true); }
+inline void __syncwarp(unsigned = 0xffffffffu) { emu_warp_bar[threadIdx.x / 32].arrive(32, true); }
+template <typename T> inline T __shfl_sync(unsigned, T v, int src) {
+  double* row = emu_lanes[threadIdx.x / 32];
+  row[threadIdx.x % 32] = (double)v;
+  __syncwarp();
+  const T out = (T)row[src];
+  __syncwarp();
+  return out;
+}
+inline int cudaGetLastError() {  // a deadlocked launch fails, as a hung one would time out
+  const int err = emu.deadlock;
+  emu.deadlock = 0;
+  return err;
+}
 #define __global__
 #define __device__
 #define __forceinline__ inline
 #define __shared__ static
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __restrict__
-inline void emu_launch(int B, std::function<void()> fn) {  // blocks in turn, 32 lanes each
+inline void emu_entry() {
+  emu.fn();
+  emu.done[emu.cur] = 1;
+  emu_next();
+}
+inline void emu_launch(int B, int threads, std::function<void()> fn) {  // blocks in turn
+  const size_t stack = 1 << 18;
+  emu.threads = threads;
+  emu.fn = fn;
+  emu.ctx.resize(threads);
+  emu.stacks.resize(stack * threads);
   for (int b = 0; b < B; ++b) {
-    pthread_barrier_init(&emu_barrier, nullptr, 32);
-    std::vector<std::thread> lanes;
-    for (int l = 0; l < 32; ++l)
-      lanes.emplace_back([&, l, b] { threadIdx.x = l; blockIdx.x = b; fn(); });
-    for (auto& t : lanes) t.join();
-    pthread_barrier_destroy(&emu_barrier);
+    blockIdx.x = b;
+    emu.waiting.assign(threads, 0);
+    emu.done.assign(threads, 0);
+    for (auto& bar : emu_bar) bar = emu_barrier_t();  // a block's barriers start empty
+    for (auto& bar : emu_warp_bar) bar = emu_barrier_t();
+    for (int t = 0; t < threads; ++t) {
+      getcontext(&emu.ctx[t]);
+      emu.ctx[t].uc_stack.ss_sp = emu.stacks.data() + stack * t;
+      emu.ctx[t].uc_stack.ss_size = stack;
+      emu.ctx[t].uc_link = nullptr;
+      makecontext(&emu.ctx[t], emu_entry, 0);
+    }
+    emu.cur = threadIdx.x = 0;
+    swapcontext(&emu.host, &emu.ctx[0]);
+    if (emu.deadlock) return;
   }
 }
 """
 
 
-@pytest.fixture(scope="module")
-def host_build(tmp_path_factory):
+def _host_library(root, src: str):
+    """``src`` compiled by g++ against the shim, as a shared library."""
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("needs g++ (the mesh oracle's compiler)")
-    root = tmp_path_factory.mktemp("rollout_host")
     (root / "cuda_runtime.h").write_text(_SHIM)
+    (root / "host.cpp").write_text(
+        '#include "cuda_runtime.h"\ndim_t threadIdx, blockIdx;\nemu_block_t emu;\n'
+        "emu_barrier_t emu_bar[16], emu_warp_bar[32];\ndouble emu_lanes[32][32];\n" + src)
+    out = root / "host.so"
+    subprocess.run([cxx, "-O1", "-std=c++17", "-fPIC", "-shared", f"-I{root}", "-o", str(out),
+                    str(root / "host.cpp")], check=True, capture_output=True)
+    return out
+
+
+@pytest.fixture(scope="module")
+def host_build(tmp_path_factory):
     src = rk.SOURCE.read_text()
-    src, n = re.subn(r"(rollout_kernel<S, \w+>)<<<B, 32, 0, stream>>>\(ARMOUR_ROLLOUT_ARGS\)",
-                     r"emu_launch(B, [&] { \1(ARMOUR_ROLLOUT_ARGS); })", src)
-    assert n == len(CONTROLLERS)
-    (root / "rollout_host.cpp").write_text(
-        '#include "cuda_runtime.h"\n'
-        "thread_local dim_t threadIdx, blockIdx;\npthread_barrier_t emu_barrier;\n" + src)
-    out = root / "rollout_host.so"
-    subprocess.run([cxx, "-O2", "-std=c++17", "-fPIC", "-shared", f"-I{root}", "-o", str(out),
-                    str(root / "rollout_host.cpp"), "-lpthread"], check=True, capture_output=True)
-    return rk.bind(out)
+    # one launch per chain instantiation, each serving every controller
+    src, n = re.subn(r"(rollout_kernel<S, \w+>)<<<B, THREADS, 0, stream>>>\(ARMOUR_ROLLOUT_ARGS\)",
+                     r"emu_launch(B, THREADS, [&] { \1(ARMOUR_ROLLOUT_ARGS); })", src)
+    assert n == len(rk.SPECIALISED) + 1
+    return rk.bind(_host_library(tmp_path_factory.mktemp("rollout_host"), src))
+
+
+def test_host_shim_fails_a_deadlocked_launch(tmp_path):
+    """A block whose threads all wait at a barrier that too few reach makes
+    the launch fail, and the next launch runs."""
+    lib = ctypes.CDLL(str(_host_library(tmp_path, r"""
+__global__ void hang(int* out) { bar_sync<1, 64>(); out[threadIdx.x] = 1; }
+__global__ void meet(int* out) { bar_sync<1, 32>(); out[threadIdx.x] = 1; }
+extern "C" int run(int wait_all, int* out) {
+  if (wait_all) emu_launch(1, 32, [&] { hang(out); });
+  else emu_launch(2, 32, [&] { meet(out); });
+  return cudaGetLastError();
+}
+""")))
+    out = (ctypes.c_int * 32)()
+    assert lib.run(1, out) != 0 and sum(out) == 0
+    assert lib.run(0, out) == 0 and sum(out) == 32
 
 
 def _host_rollout(lib, spec, sim, q, qd, traj, true, noise, controller, traj_type):
@@ -239,8 +377,8 @@ def _host_rollout(lib, spec, sim, q, qd, traj, true, noise, controller, traj_typ
     err = lib.armour_rollout(
         rk._DTYPE_CODE[dtype], CONTROLLERS.index(controller), packed.spec.data_ptr(),
         packed.ispec.data_ptr(), packed.world.data_ptr(), noise.data_ptr(),
-        None if gains is None else gains.data_ptr(), B, n_steps, log_every, n_knots,
-        sim.plant_dt, sim.plant_dt / sim.check_dt, 1.0, sim.t_move, int(traj_type == "orig"),
+        None if gains is None else gains.data_ptr(), B, spec.n_joints, nf, n_steps, log_every,
+        n_knots, sim.plant_dt, sim.plant_dt / sim.check_dt, 1.0, sim.t_move, int(traj_type == "orig"),
         q_end.data_ptr(), qd_end.data_ptr(), *(logs[j].data_ptr() for j in range(5)), None)
     assert err == 0
     return q_end, qd_end, logs
@@ -253,6 +391,7 @@ def _host_rollout(lib, spec, sim, q, qd, traj, true, noise, controller, traj_typ
     ("kinova", "nominal", "bernstein", torch.float32),
     ("planar2", "pid", "bernstein", torch.float64),
     ("planar6", "althoff", "orig", torch.float64),
+    ("planar4", "robust", "bernstein", torch.float64),
 ])
 def test_kernel_source_on_the_host_matches_plain(host_build, name, controller, traj_type, dtype):
     spec = SPECS[name]()
