@@ -7,7 +7,7 @@ Port of `armour_tpu/planner/armour.py`: the production mode
 self-intersection block of the legacy rotatotope planners
 (`planner/rotatotope.py`).  The JAX package maps the build over worlds with
 ``lax.map`` and vmaps the solve; here the world axis B is a leading
-dimension of every tensor, and a plan is one eager pass over the batch:
+dimension of every tensor, and a plan is one pass over the batch:
 
     build_probs: Bezier JRS -> PZ-FK/RNEA -> whole-FRS obstacle culling
                  -> compaction -> bucketed hyperplane bank
@@ -15,12 +15,19 @@ dimension of every tensor, and a plan is one eager pass over the batch:
                  Gauss-Newton iteration) -> fused strict re-verification;
                  in smooth mode the collision block is plain tensor code and
                  the explicit verification pool makes the one kernel launch
+
+The JAX package compiles these once per shape; here every plan runs
+through a ``PlanProgram`` kept per (B, bucket), CUDA graphs on a card
+(``plan``, ``plan_batch``, ``run_program``), and ``eager=True`` runs the
+same stages op by op.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
+import weakref
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -58,7 +65,7 @@ from armour_tpu_torch.planner.rotatotope import (
     self_intersection_with_jac_multi,
 )
 from armour_tpu_torch.robots.spec import RobotSpec
-from armour_tpu_torch.utils.graphs import ProgramCache, release, stepper
+from armour_tpu_torch.utils.graphs import ProgramCache, keep_into, release, stepper, tree_map
 
 
 def wrap_to_pi(x):
@@ -126,6 +133,23 @@ def obstacle_bucket(masks) -> int:
     live = m.any(axis=tuple(range(m.ndim - 1)))
     need = int(np.nonzero(live)[0].max() + 1) if live.any() else 1
     return min(m.shape[-1], max(8, -(-need // 8) * 8))
+
+
+def cull_order(keep: np.ndarray):
+    """(order (B, O), bucket) of a host keep mask: the STABLE order that
+    moves each world's kept obstacles to the front, and the bucket that
+    covers them (`armour.py:180-189`)."""
+    order = np.argsort(~keep, axis=1, kind="stable")
+    return order, obstacle_bucket(np.take_along_axis(keep, order, axis=1))
+
+
+def compact(zonos, keep, order, bucket: int):
+    """The first ``bucket`` obstacles of ``order`` (B, O) on the device:
+    (zonos (B, bucket, 4, 3), masks (B, bucket)) from zonos (B, O, 4, 3)
+    and the keep mask (B, O)."""
+    idx = order[:, :bucket]
+    return (torch.gather(zonos, 1, idx[:, :, None, None].expand(-1, -1, *zonos.shape[2:])),
+            torch.gather(keep, 1, idx))
 
 
 @dataclasses.dataclass
@@ -248,7 +272,8 @@ class ArmourPlanner:
 
     def build_probs(self, q0, qd0, qdd0, zonos, masks, cull: bool | None = None) -> ProblemData:
         """Batched build: reachable sets -> whole-FRS obstacle culling ->
-        compaction -> bucketed hyperplane bank (`armour.py:151-189`).
+        compaction -> bucketed hyperplane bank (`armour.py:151-189`), op by
+        op (the kept programs run the same stages as graphs, ``run_program``).
 
         Culling runs when the batch is above the minimum bucket: one
         device->host trip (the keep mask), then a STABLE compaction of the
@@ -262,14 +287,10 @@ class ArmourPlanner:
         if not cull or b0 <= 8:
             hp = self.buffer(link_gens, zonos[:, :b0], masks[:, :b0])
             return prob._replace(hp=hp)
-        keep = self.cull_keep(aabb_c, aabb_r, zonos, masks).cpu().numpy()
-        order = np.argsort(~keep, axis=1, kind="stable")
-        order_t = torch.as_tensor(order, device=self.device)
-        zonos = torch.gather(zonos, 1, order_t[:, :, None, None].expand(-1, -1, 4, 3))
-        m_np = np.take_along_axis(keep, order, axis=1)
-        b = obstacle_bucket(m_np)
-        masks = torch.as_tensor(m_np[:, :b], device=self.device)
-        return prob._replace(hp=self.buffer(link_gens, zonos[:, :b], masks))
+        keep = self.cull_keep(aabb_c, aabb_r, zonos, masks)
+        order, b = cull_order(keep.cpu().numpy())
+        order = torch.as_tensor(order, device=self.device)
+        return prob._replace(hp=self.buffer(link_gens, *compact(zonos, keep, order, b)))
 
     # -- solve ------------------------------------------------------------
     def random_starts(self, B: int, generator: torch.Generator | None = None) -> torch.Tensor:
@@ -390,9 +411,11 @@ class ArmourPlanner:
         be given the same starts.  The gather is a collective that the
         graph does not capture, so a sharded solve runs op by op.
 
-        ``keep``: the solver's state and graph across calls of one shape
-        (``solve_box_alm_multi``); ``prob``, ``q_des`` and the starts must
-        then be the same tensors in every call (``PlanProgram``)."""
+        ``keep``: the solve's state and steps across calls of one shape
+        (``solve_box_alm_multi``), and the verification as one more step
+        whose result is kept in buffers (a later call overwrites them); on a
+        card each step is a graph.  ``prob`` and ``q_des`` must then be the
+        same tensors in every call (``PlanProgram``)."""
         spec, cfg, dtype, dev = self.spec, self._cfg, self.dtype, self.device
         nf = spec.n_factors
         B = prob.q0.shape[0]
@@ -407,107 +430,171 @@ class ArmourPlanner:
         k_warm = torch.zeros((B, nf), dtype=dtype, device=dev) if k_warm is None else self._t(k_warm)
         K0 = torch.cat([torch.zeros((B, 1, nf), dtype=dtype, device=dev), k_warm[:, None],
                         self._t(k_rand)], dim=1)
+        if keep and "K0" in keep:
+            keep["K0"].copy_(K0)         # a kept solve reads its starts at one address
+            K0 = keep["K0"]
 
+        eager = eager or collision_group is not None
         sol = solve_box_alm_multi(f_fn, cj_multi, K0, outer_iters=cfg.nlp_outer_iters,
                                   inner_iters=cfg.nlp_inner_iters, separable_cost=True,
-                                  eager=eager or collision_group is not None, keep=keep)
+                                  eager=eager, keep=keep)
 
-        pool = torch.cat([sol.k, sol.k_feas, K0[:, :2]], dim=1)   # (B, 2S+2, n)
-        if cfg.smooth_collision_tau == 0.0:
-            # strict re-verification, FUSED (`armour.py:485-551`): the solver's
-            # carried constraint values are exact at the final iterates (sol.c)
-            # and at the starts (sol.c0), and the strictly-feasible incumbents
-            # satisfy max c <= 0 < every threshold by construction, so the pool
-            # (final iterates, incumbents, k = 0 and the warm start) is judged
-            # with no extra pass over the bank
-            m = sol.c0.shape[-1]
-            parts = []
-            if prob.u is not None:
-                m_t = int(np.prod(prob.u.c.shape[1:]))
-                parts += [(m_t, cfg.torque_violation_threshold)] * 2
-            if prob.grasp is not None:
-                parts.append((int(np.prod(prob.grasp.c.shape[1:])), 1e-6))
-            # the self-intersection rows sit between the collision block and
-            # the state block, and take the collision threshold
-            m_si = 0 if prob.si_diff is None else int(np.prod(prob.si_rad.shape[1:3]))
-            m_tail = 8 * nf
-            parts.append((m - sum(p[0] for p in parts) - m_si - m_tail,
-                          cfg.collision_violation_threshold))
-            parts.append((m_si, cfg.collision_violation_threshold))
-            parts.append((m_tail, cfg.state_violation_threshold))
-            thr = torch.cat([torch.full((sz,), t, dtype=dtype, device=dev) for sz, t in parts])
+        def verify() -> PlanResult:
+            pool = torch.cat([sol.k, sol.k_feas, K0[:, :2]], dim=1)   # (B, 2S+2, n)
+            if cfg.smooth_collision_tau == 0.0:
+                # strict re-verification, FUSED (`armour.py:485-551`): the solver's
+                # carried constraint values are exact at the final iterates (sol.c)
+                # and at the starts (sol.c0), and the strictly-feasible incumbents
+                # satisfy max c <= 0 < every threshold by construction, so the pool
+                # (final iterates, incumbents, k = 0 and the warm start) is judged
+                # with no extra pass over the bank
+                m = sol.c0.shape[-1]
+                parts = []
+                if prob.u is not None:
+                    m_t = int(np.prod(prob.u.c.shape[1:]))
+                    parts += [(m_t, cfg.torque_violation_threshold)] * 2
+                if prob.grasp is not None:
+                    parts.append((int(np.prod(prob.grasp.c.shape[1:])), 1e-6))
+                # the self-intersection rows sit between the collision block and
+                # the state block, and take the collision threshold
+                m_si = 0 if prob.si_diff is None else int(np.prod(prob.si_rad.shape[1:3]))
+                m_tail = 8 * nf
+                parts.append((m - sum(p[0] for p in parts) - m_si - m_tail,
+                              cfg.collision_violation_threshold))
+                parts.append((m_si, cfg.collision_violation_threshold))
+                parts.append((m_tail, cfg.state_violation_threshold))
+                thr = torch.cat([torch.full((sz,), t, dtype=dtype, device=dev) for sz, t in parts])
 
-            feas0 = torch.all(sol.c0 <= thr, dim=-1)
-            viol0 = torch.amax(sol.c0, dim=-1)
-            feas = torch.cat([torch.all(sol.c <= thr, dim=-1), sol.found_feas | feas0, feas0[:, :2]], dim=1)
-            viols = torch.cat([torch.amax(sol.c, dim=-1),
-                               torch.where(sol.found_feas, sol.v_feas, viol0), viol0[:, :2]], dim=1)
-        else:
-            # smooth mode keeps the explicit pass (`armour.py:553-607`): the
-            # solver's values are the smooth conservative bound, while the
-            # verification contract is against the hard max.  One launch of
-            # the values-only kernel covers the whole pool.
-            Np = pool.shape[1]
-            blocks = []                                       # (values (B, Np, ...), threshold)
-            if prob.u is not None:
-                u_c, _, _ = prob.u.slice_with_jac_multi(pool)          # (B, Np, T, nf)
-                blocks.append((torch.maximum(u_c - (t_lim - t_rad), (-t_lim + t_rad) - u_c),
-                               cfg.torque_violation_threshold))
-            if prob.grasp is not None:
-                gc, gr, _ = prob.grasp.slice_with_jac_multi(pool)
-                blocks.append((gc + gr[:, None], 1e-6))
-            centers, _, _ = prob.links.slice_with_jac_multi(pool)
-            col = collision_values_multi(prob.hp, centers)
-            if collision_group is not None:
-                col = gather_obstacles(col, collision_group)
-            blocks.append((col, cfg.collision_violation_threshold))
-            if prob.si_diff is not None:
-                blocks.append((self_intersection_values_multi(prob.si_diff, prob.si_rad, pool),
-                               cfg.collision_violation_threshold))
-            blocks.append((pv_fn(pool), cfg.state_violation_threshold))
-            worst = [(v.reshape(B, Np, -1).amax(dim=-1), thr) for v, thr in blocks]
-            feas = torch.stack([v <= thr for v, thr in worst]).all(dim=0)
-            viols = torch.stack([v for v, _ in worst]).amax(dim=0)
-        costs = torch.where(feas, f_fn(pool), torch.inf)
-        best = torch.argmin(costs, dim=1, keepdim=True)           # (B, 1)
-        feasible = torch.gather(feas, 1, best)[:, 0]
-        k_best = torch.gather(pool, 1, best[..., None].expand(-1, -1, nf))[:, 0]
-        return PlanResult(
-            k=torch.where(feasible[:, None], k_best, torch.nan),
-            feasible=feasible,
-            cost=torch.gather(costs, 1, best)[:, 0] / cfg.cost_scale,
-            max_violation=torch.gather(viols, 1, best)[:, 0],
-            torque_radius=prob.t_rad,
-        )
+                feas0 = torch.all(sol.c0 <= thr, dim=-1)
+                viol0 = torch.amax(sol.c0, dim=-1)
+                feas = torch.cat([torch.all(sol.c <= thr, dim=-1), sol.found_feas | feas0,
+                                  feas0[:, :2]], dim=1)
+                viols = torch.cat([torch.amax(sol.c, dim=-1),
+                                   torch.where(sol.found_feas, sol.v_feas, viol0), viol0[:, :2]], dim=1)
+            else:
+                # smooth mode keeps the explicit pass (`armour.py:553-607`): the
+                # solver's values are the smooth conservative bound, while the
+                # verification contract is against the hard max.  One launch of
+                # the values-only kernel covers the whole pool.
+                Np = pool.shape[1]
+                blocks = []                                       # (values (B, Np, ...), threshold)
+                if prob.u is not None:
+                    u_c, _, _ = prob.u.slice_with_jac_multi(pool)          # (B, Np, T, nf)
+                    blocks.append((torch.maximum(u_c - (t_lim - t_rad), (-t_lim + t_rad) - u_c),
+                                   cfg.torque_violation_threshold))
+                if prob.grasp is not None:
+                    gc, gr, _ = prob.grasp.slice_with_jac_multi(pool)
+                    blocks.append((gc + gr[:, None], 1e-6))
+                centers, _, _ = prob.links.slice_with_jac_multi(pool)
+                col = collision_values_multi(prob.hp, centers)
+                if collision_group is not None:
+                    col = gather_obstacles(col, collision_group)
+                blocks.append((col, cfg.collision_violation_threshold))
+                if prob.si_diff is not None:
+                    blocks.append((self_intersection_values_multi(prob.si_diff, prob.si_rad, pool),
+                                   cfg.collision_violation_threshold))
+                blocks.append((pv_fn(pool), cfg.state_violation_threshold))
+                worst = [(v.reshape(B, Np, -1).amax(dim=-1), thr) for v, thr in blocks]
+                feas = torch.stack([v <= thr for v, thr in worst]).all(dim=0)
+                viols = torch.stack([v for v, _ in worst]).amax(dim=0)
+            costs = torch.where(feas, f_fn(pool), torch.inf)
+            best = torch.argmin(costs, dim=1, keepdim=True)           # (B, 1)
+            feasible = torch.gather(feas, 1, best)[:, 0]
+            k_best = torch.gather(pool, 1, best[..., None].expand(-1, -1, nf))[:, 0]
+            return PlanResult(
+                k=torch.where(feasible[:, None], k_best, torch.nan),
+                feasible=feasible,
+                cost=torch.gather(costs, 1, best)[:, 0] / cfg.cost_scale,
+                max_violation=torch.gather(viols, 1, best)[:, 0],
+                torque_radius=prob.t_rad,
+            )
+
+        if keep is None:
+            return verify()
+        if "verify" not in keep:
+            def step():
+                keep["result"] = keep_into(keep.get("result"), verify())
+
+            keep["verify"] = stepper(step, dev, eager)
+        keep["verify"]()
+        return keep["result"]
 
     # -- entry points -----------------------------------------------------
     def plan_batch(self, q0, qd0, qdd0, q_des, zonos, masks, k_rand=None, k_warm=None,
                    generator: torch.Generator | None = None, eager: bool = False) -> PlanResult:
         """Plan B worlds: q0/qd0/qdd0/q_des (B, nf), zonos (B, cap, 4, 3),
         masks (B, cap); ``k_rand`` (B, S-2, nf) overrides the random starts.
-        ``eager``: see ``solve``."""
-        probs = self.build_probs(q0, qd0, qdd0, zonos, masks)
-        return self.solve(probs, q_des, k_rand=k_rand, k_warm=k_warm, generator=generator,
-                          eager=eager)
+
+        The plan runs through the programs kept per (B, bucket)
+        (``run_program``); ``eager=True`` builds (``build_probs``) and
+        solves op by op with no program, to hold the two against each
+        other."""
+        if eager:
+            probs = self.build_probs(q0, qd0, qdd0, zonos, masks)
+            return self.solve(probs, q_des, k_rand=k_rand, k_warm=k_warm, generator=generator,
+                              eager=True)
+        return self.run_program(q0, qd0, qdd0, q_des, zonos, masks, k_rand, k_warm, generator)[0]
+
+    def run_program(self, q0, qd0, qdd0, q_des, zonos, masks, k_rand=None, k_warm=None,
+                    generator: torch.Generator | None = None, full_width: bool = False,
+                    marks: dict | None = None):
+        """(plan, problem) of B worlds through the programs kept in
+        ``batch_programs``, the counterpart of the JAX package's compiled
+        batched build and solve (`armour.py:124-189`).  The random starts are
+        drawn here, outside the programs, as ``solve`` draws them.  The plan
+        is the caller's; the problem is the program's (its ``k_range`` and
+        bank are read by the episode drivers), overwritten by the next call
+        at its key.
+
+        As ``build_probs`` decides: without culling, or at a bucket b0 of 8,
+        one program of key (B, b0) builds the reachable sets and the bank of
+        the first b0 slots and solves.  With culling, the ``ReachStage`` of
+        key (B, cap, "reach") builds the reachable sets and the keep mask,
+        the mask makes the one host trip (the stable compaction order and
+        the bucket b are computed there), and the program of key
+        (B, cap, b) compacts, builds the bank from the stage's outputs and
+        solves.  ``full_width=True`` builds every slot as given, with no
+        culling (key (B, cap): the episode program's plan).
+
+        ``marks``: a dict that receives the host clock (``time.perf_counter``)
+        after the build and after the solve, each taken after a device
+        synchronise (the episode drivers' trace)."""
+        q0, qd0, qdd0, q_des, zonos = (self._t(x) for x in (q0, qd0, qdd0, q_des, zonos))
+        masks = self._t(masks, torch.bool)
+        B, cap = masks.shape
+        k_rand = self.random_starts(B, generator) if k_rand is None else self._t(k_rand)
+        k_warm = torch.zeros_like(k_rand[:, 0]) if k_warm is None else self._t(k_warm)
+        progs = self.batch_programs
+        b = cap if full_width else obstacle_bucket(masks)
+        if full_width or not self.cfg.obstacle_culling or b <= 8:
+            key, make = (B, b), lambda: PlanProgram(self, b, B)
+            zonos, masks = zonos[:, :b], masks[:, :b]
+        else:
+            reach = progs.run((B, cap, "reach"), lambda: ReachStage(self, B, cap),
+                              q0, qd0, qdd0, zonos, masks)
+            key, make = (B, cap, reach.bucket), lambda: PlanProgram(self, reach.bucket, B, reach)
+        res = progs.run(key, make, q0, qd0, qdd0, q_des, zonos, masks, k_rand, k_warm, marks=marks)
+        return res, progs.entries[key].prob
 
     def plan(self, q0, qd0, qdd0, q_des, obstacles: ObstacleSet, k_rand=None, k_warm=None,
              generator: torch.Generator | None = None, eager: bool = False) -> PlanResult:
         """Plan one world (no culling, as the reference's single-plan
         program): obstacles.zonos (cap, 4, 3), obstacles.mask (cap,).
 
-        The plan runs through a ``PlanProgram`` kept per obstacle bucket
-        (computed here on the host; the planner's dtype, trajectory type,
-        starts, T and mode switches are fixed when it is made), the
-        counterpart of the JAX package's ``jax.jit`` of its plan function
-        (`armour.py:108`): on a card its first call captures, every later
-        call replays.  The random starts are drawn here, outside the
-        program, as ``solve`` draws them.  ``eager=True`` builds and solves
-        op by op with no program, to hold the two against each other."""
+        The plan runs through a ``PlanProgram`` of key (1, bucket), kept in
+        ``programs`` (the bucket computed here on the host; the planner's
+        dtype, trajectory type, starts, T and mode switches are fixed when
+        it is made), the counterpart of the JAX package's ``jax.jit`` of its
+        plan function (`armour.py:108`): on a card its first call captures,
+        every later call replays.  The random starts are drawn here, outside
+        the program, as ``solve`` draws them.  ``eager=True`` builds and
+        solves op by op with no program, to hold the two against each
+        other."""
         b, args = self.plan_args(q0, qd0, qdd0, q_des, obstacles, k_rand, k_warm, generator)
         if eager:
             res = self.plan_fixed(*args, eager=True)
         else:
-            res = self.programs.run(b, lambda: PlanProgram(self, b), *args)
+            res = self.programs.run((1, b), lambda: PlanProgram(self, b), *args)
         return PlanResult(*(x[0] for x in res))
 
     def plan_args(self, q0, qd0, qdd0, q_des, obstacles: ObstacleSet, k_rand=None, k_warm=None,
@@ -528,6 +615,15 @@ class ArmourPlanner:
             self._programs = ProgramCache(4)
         return self._programs
 
+    @property
+    def batch_programs(self) -> ProgramCache:
+        """The planner's batched programs (``run_program``): every bucket of
+        one B and its ``ReachStage`` (``max_obstacles / 8 + 1`` entries), so
+        that a battery moving between buckets never evicts."""
+        if "_batch_programs" not in self.__dict__:
+            self._batch_programs = ProgramCache(-(-self.cfg.max_obstacles // 8) + 1)
+        return self._batch_programs
+
     def build_fixed(self, q0, qd0, qdd0, zonos, masks) -> ProblemData:
         """``build_probs`` without culling at the bucket the caller chose
         (the obstacle axis of ``zonos`` and ``masks``): no host round trip."""
@@ -543,69 +639,144 @@ class ArmourPlanner:
         return self.solve(prob, q_des, k_rand=k_rand, k_warm=k_warm, eager=eager)
 
 
-def _tree(fn, *trees):
-    """``fn`` over the tensors of matching NamedTuples and dataclasses
-    (``ProblemData``), the rest of the first tree kept as it is."""
-    x = trees[0]
-    if isinstance(x, torch.Tensor):
-        return fn(*trees)
-    if isinstance(x, tuple) and hasattr(x, "_fields"):
-        return type(x)(*(_tree(fn, *fields) for fields in zip(*trees)))
-    if dataclasses.is_dataclass(x):
-        return dataclasses.replace(x, **{f.name: _tree(fn, *(getattr(t, f.name) for t in trees))
-                                         for f in dataclasses.fields(x)})
-    return x
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class ReachStage:
+    """The first stage of a culled batched plan, kept per (B, cap) in the
+    planner's ``batch_programs`` (the counterpart of the JAX package's
+    ``_rs_map`` and ``_cull_jit``, `armour.py:124-131`): the reachable sets
+    and the whole-FRS keep mask of B worlds at every slot, built from input
+    tensors at fixed addresses into output buffers (``out``: the problem
+    without its bank, the links' independent generators and the keep mask)
+    as one step, a CUDA graph on a card.  A call then copies the keep mask
+    to the host, computes the stable compaction order and the bucket there
+    (``bucket``; the order goes to ``order``, a buffer on the device) and
+    returns the stage.  The ``PlanProgram`` of each bucket reads these
+    buffers (its ``parent``)."""
+
+    parent = None
+
+    def __init__(self, planner: ArmourPlanner, batch: int, cap: int):
+        planner = weakref.proxy(planner)     # the planner's cache holds the stage
+        nf, dt, dev = planner.spec.n_factors, planner.dtype, planner.device
+        vec = lambda *shape: torch.zeros((batch, *shape), dtype=dt, device=dev)  # noqa: E731
+        self.inputs = (vec(nf), vec(nf), vec(nf), vec(cap, 4, 3),
+                       torch.zeros((batch, cap), dtype=torch.bool, device=dev))
+        self.order = torch.zeros((batch, cap), dtype=torch.long, device=dev)
+        self.out = None
+        self.bucket = None
+
+        def reach():
+            prob, link_gens, aabb_c, aabb_r = planner.reachable_sets(*self.inputs[:3])
+            keep = planner.cull_keep(aabb_c, aabb_r, *self.inputs[3:])
+            self.out = keep_into(self.out, (prob, link_gens, keep))
+
+        self.step = stepper(reach, dev, eager=False)
+
+    @property
+    def steps(self) -> list:
+        return [] if self.step is None else [self.step]
+
+    def __call__(self, q0, qd0, qdd0, zonos, masks) -> "ReachStage":
+        for buf, x in zip(self.inputs, (q0, qd0, qdd0, zonos, masks)):
+            buf.copy_(x)
+        self.step()
+        order, self.bucket = cull_order(self.out[2].cpu().numpy())   # the one host trip
+        self.order.copy_(torch.as_tensor(order))
+        return self
+
+    def release(self):
+        release(self.step)
+        self.step, self.out, self.inputs, self.order = None, None, (), None
 
 
 class PlanProgram:
-    """``ArmourPlanner.plan`` at one obstacle bucket, kept: input tensors at
-    fixed addresses into which each call copies its arguments, the build
-    and the solve composed with no host round trip and no culling, and the
-    result copied out (a later call overwrites the program's own outputs).
+    """A plan of ``batch`` worlds at one obstacle bucket, kept: input
+    tensors at fixed addresses into which each call copies its arguments,
+    the build and the solve composed with no host round trip, and the
+    result copied out (the program's problem, ``prob``, is overwritten by
+    the next call).  One class serves ``plan`` (B = 1, key (1, bucket)),
+    the episode program's plan (B worlds at every slot) and the culled
+    batched plan of ``plan_batch`` and the battery driver, whose build
+    reads the outputs of its ``parent``, a ``ReachStage``
+    (``ArmourPlanner.run_program``).
 
-    On a card the first call runs op by op and captures, every later call
-    replays (`utils/graphs.py`): the build as one graph, and the solver's
-    inner-iteration graph kept across calls (64 replays per plan); the
-    first bank pass, the outer updates and the verification run op by op.
-    On the CPU all of it runs op by op.  ``steps`` are the build's step and
-    the solver's kept one (``CapturedStep`` objects on a card)."""
+    The steps, each a CUDA graph on a card (`utils/graphs.py`; the first
+    call runs each op by op and captures it, every later call replays): the
+    build (the reachable sets and the bank of the first ``bucket`` slots;
+    with a parent, the compaction and the bank only), the solver's first
+    bank pass, its Gauss-Newton iteration (64 replays per plan), its outer
+    update (8) and the verification with the choice of the best plan
+    (``ArmourPlanner.solve(keep=...)``).  No graph is launched inside
+    another capture.  On the CPU all of it runs op by op through the same
+    buffers.  A call returns the plan; ``prob`` holds the problem.  The
+    program holds its planner weakly (the planner's caches hold programs),
+    so the planner must outlive it."""
 
-    def __init__(self, planner: ArmourPlanner, bucket: int):
+    STEPS = ("build", "first_pass", "iteration", "outer_update", "verification")
+
+    def __init__(self, planner: ArmourPlanner, bucket: int, batch: int = 1,
+                 reach: ReachStage | None = None):
+        planner = weakref.proxy(planner)     # the planner's cache holds the program
         spec, cfg, dt, dev = planner.spec, planner._cfg, planner.dtype, planner.device
         nf = spec.n_factors
-        vec = lambda *shape: torch.zeros((1, *shape), dtype=dt, device=dev)  # noqa: E731
-        self.planner = planner
-        self.inputs = (vec(nf), vec(nf), vec(nf), vec(nf), vec(bucket, 4, 3),
-                       torch.zeros((1, bucket), dtype=torch.bool, device=dev),
-                       vec(max(cfg.nlp_num_starts - 2, 1), nf), vec(nf))
+        vec = lambda *shape: torch.zeros((batch, *shape), dtype=dt, device=dev)  # noqa: E731
+        self.planner, self.parent, self.device = planner, reach, dev
+        # the buffers of the plan's arguments that this program reads itself
+        # (q0, qd0, qdd0, q_des, zonos, masks, k_rand, k_warm; with a parent
+        # the stage holds the first three and the obstacles)
+        starts = (vec(max(cfg.nlp_num_starts - 2, 1), nf), vec(nf))
+        q_des = vec(nf)
+        if reach is None:
+            self.take = range(8)
+            self.inputs = (vec(nf), vec(nf), vec(nf), q_des, vec(bucket, 4, 3),
+                           torch.zeros((batch, bucket), dtype=torch.bool, device=dev), *starts)
+        else:
+            self.take = (3, 6, 7)
+            self.inputs = (q_des, *starts)
+        self.solve_inputs = (q_des, *starts)
         self.prob = None                 # the built problem
-        self.keep = {}                   # the solver's kept state and step
+        self.keep = {}                   # the solve's kept state and steps
 
         def build():
-            prob = planner.build_fixed(*self.inputs[:3], *self.inputs[4:6])
-            if self.prob is None:
-                self.prob = _tree(torch.clone, prob)
-            else:
-                _tree(torch.Tensor.copy_, self.prob, prob)
+            if reach is None:
+                prob = planner.build_fixed(*self.inputs[:3], *self.inputs[4:6])
+                self.prob = keep_into(self.prob, prob)
+                return
+            prob, link_gens, keep = reach.out
+            hp = planner.buffer(link_gens, *compact(reach.inputs[3], keep, reach.order, bucket))
+            self.prob = prob._replace(hp=keep_into(None if self.prob is None else self.prob.hp, hp))
 
         self.build = stepper(build, dev, eager=False)
 
     @property
     def steps(self) -> list:
-        """The build's step and the solver's kept one."""
+        """The build's step, the solve's three and the verification's
+        (``STEPS`` names them)."""
         if self.build is None:
             return []
-        return [self.build, *self.keep.get("state", ())[-1:]]
+        verify = [self.keep["verify"]] if "verify" in self.keep else []
+        return [self.build, *self.keep.get("steps", ()), *verify]
 
-    def __call__(self, *args) -> PlanResult:
-        for buf, x in zip(self.inputs, args):
-            buf.copy_(x)
+    def __call__(self, *args, marks: dict | None = None):
+        for buf, i in zip(self.inputs, self.take):
+            buf.copy_(args[i])
         self.build()
-        q_des, k_rand, k_warm = self.inputs[3], *self.inputs[6:]
+        if marks is not None:
+            _sync(self.device)
+            marks["built"] = time.perf_counter()
+        q_des, k_rand, k_warm = self.solve_inputs
         res = self.planner.solve(self.prob, q_des, k_rand=k_rand, k_warm=k_warm, keep=self.keep)
-        return _tree(torch.clone, res)
+        res = tree_map(torch.clone, res)
+        if marks is not None:
+            _sync(self.device)
+            marks["solved"] = time.perf_counter()
+        return res
 
     def release(self):
         for step in self.steps:
             release(step)
-        self.build, self.prob, self.keep, self.inputs = None, None, {}, ()
+        self.build, self.prob, self.keep, self.inputs, self.solve_inputs = None, None, {}, (), ()

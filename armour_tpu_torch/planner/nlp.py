@@ -11,7 +11,9 @@ writes, so the hot loop never transposes it.
 
 On a card, ``solve_box_alm_multi``'s Gauss-Newton iteration is captured
 once per call as a CUDA graph and replayed (`utils/graphs.py`), the
-counterpart of the JAX package's compiled ``lax.scan``.  A caller that
+counterpart of the JAX package's compiled ``lax.scan``; a solve kept across
+calls (``keep``) keeps that graph and two more, the first bank pass and the
+outer update.  A caller that
 knows its cost is a sum of per-coordinate terms, or a constraint block
 elementwise over the coordinates, takes their exact derivatives from one
 all-ones tangent (``separable_cost_derivatives``,
@@ -223,20 +225,26 @@ def solve_box_alm_multi(
     per-coordinate terms, so its Hessian is diagonal
     (``separable_cost_derivatives``); the solver does not guess.
 
-    On a card the Gauss-Newton iteration is one CUDA graph, captured at the
-    first iteration of this call and replayed for the others: ``f_fn`` and
-    ``cj_fn_multi`` must then neither synchronise with the host nor make
-    tensors from host data, and the graph reads whatever they close over
-    by address, so it is kept beyond the call only through ``keep``.
-    ``eager=True`` runs the iteration op by op instead, to hold the graph
-    against it or to record it inside another capture; the CPU always runs
-    op by op.
+    The solve is three steps over buffers that they update in place: the
+    first bank pass at the starts (which also resets every buffer), the
+    Gauss-Newton iteration (``outer_iters * inner_iters`` times) and the
+    outer update (``outer_iters`` times).  On a card the iteration is one
+    CUDA graph, captured at the first iteration of this call and replayed
+    for the others: ``f_fn`` and ``cj_fn_multi`` must then neither
+    synchronise with the host nor make tensors from host data, and the
+    graph reads whatever they close over by address, so it is kept beyond
+    the call only through ``keep``.  ``eager=True`` runs it op by op
+    instead, to hold the graph against it or to record it inside another
+    capture; the CPU always runs op by op.
 
-    ``keep``: a dict that holds the iteration's state and its step across
-    calls of one shape.  An empty one is filled by this call; a filled one is
-    reused, its state reset in place, so that the graph the first call
-    captured is replayed by every later one.  The caller vouches that
-    ``f_fn`` and ``cj_fn_multi`` read the same tensors in every such call.
+    ``keep``: a dict that holds the state and the steps across calls of one
+    shape, each of the three steps a graph of its own on a card.  An empty
+    one is filled by this call; with a filled one the first step resets the
+    state, so that the graphs the first call captured are replayed by every
+    later one.  The caller vouches that ``K0`` is the same tensor in every
+    such call, and that ``f_fn`` and ``cj_fn_multi`` read the same tensors.
+    The result's tensors are then the kept buffers: the next call
+    overwrites them.
     """
     B, S, n = K0.shape
     dtype, dev = K0.dtype, K0.device
@@ -284,51 +292,75 @@ def solve_box_alm_multi(
                 torch.where(accept[..., None, None], J_cand, Jt),
                 scale)
 
-    c0, J0 = cj_fn_multi(K0)                                      # init bank pass
-    m = c0.shape[-1]
-    if keep:
-        K, c, Jt, lam, mu, scale, iterate = keep["state"]
-        for buf, new in ((K, K0), (c, c0), (Jt, J0)):
-            buf.copy_(new)
-        lam.zero_()
-        mu.fill_(mu0)
-    else:
-        # the iteration's state, in buffers that every iteration updates in
-        # place (the graph's inputs and outputs)
-        K, c, Jt = K0.clone(), c0.clone(), J0.clone()
-        lam = torch.zeros((B, S, m), dtype=dtype, device=dev)
-        mu = torch.full((B, S), mu0, dtype=dtype, device=dev)
-        scale = torch.ones((B, S), dtype=dtype, device=dev)
+    # the solve's state, in buffers that the steps update in place (the
+    # graphs' inputs and outputs); the first step makes them on its first,
+    # op-by-op run, once the constraint count m is known
+    st = keep.get("state") if keep else None
+    if st is None:
+        st = {}
+        names = ("K", "c", "Jt", "lam", "mu", "scale")
+
+        def first():
+            """The first bank pass at the starts, and every buffer reset."""
+            c0, J0 = cj_fn_multi(K0)
+            if not st:
+                ftype = dict(dtype=dtype, device=dev)
+                st.update(K=torch.empty_like(K0), c0=torch.empty_like(c0), c=torch.empty_like(c0),
+                          Jt=torch.empty_like(J0), lam=torch.empty(c0.shape, **ftype),
+                          K_feas=torch.empty_like(K0),
+                          **{k: torch.empty((B, S), **ftype) for k in
+                             ("mu", "scale", "prev_viol", "f_feas", "v_feas", "cost")},
+                          found=torch.empty((B, S), dtype=torch.bool, device=dev))
+            for k, new in (("K", K0), ("c0", c0), ("c", c0), ("Jt", J0), ("K_feas", K0)):
+                st[k].copy_(new)
+            st["lam"].zero_()
+            st["mu"].fill_(mu0)
+            st["scale"].fill_(1.0)
+            for k in ("prev_viol", "f_feas", "v_feas"):
+                st[k].fill_(torch.inf)
+            st["found"].zero_()
 
         def step():
-            for buf, new in zip((K, c, Jt, scale), inner_step(K, c, Jt, lam, mu, scale)):
+            """One Gauss-Newton iteration."""
+            state = [st[k] for k in names]
+            for buf, new in zip(state[:3] + state[-1:], inner_step(*state)):
                 buf.copy_(new)
 
-        iterate = stepper(step, dev, eager)
-        if keep is not None:
-            keep["state"] = (K, c, Jt, lam, mu, scale, iterate)
-    prev_viol = torch.full((B, S), torch.inf, dtype=dtype, device=dev)
-    K_feas = K0
-    f_feas = torch.full((B, S), torch.inf, dtype=dtype, device=dev)
-    v_feas = torch.full((B, S), torch.inf, dtype=dtype, device=dev)
-    found = torch.zeros((B, S), dtype=torch.bool, device=dev)
+        def outer():
+            """The outer update: the incumbents and the multipliers."""
+            K, c, lam, mu = st["K"], st["c"], st["lam"], st["mu"]
+            # c is exact at K (carried from the accepted candidate's pass)
+            viol = torch.amax(torch.clamp(c, min=0.0), dim=-1)
+            f_now = f_fn(K)
+            c_max = torch.amax(c, dim=-1)
+            upd = (c_max <= 0.0) & (f_now < st["f_feas"])
+            st["K_feas"].copy_(torch.where(upd[..., None], K, st["K_feas"]))
+            st["f_feas"].copy_(torch.where(upd, f_now, st["f_feas"]))
+            st["v_feas"].copy_(torch.where(upd, c_max, st["v_feas"]))
+            st["found"].copy_(st["found"] | upd)
+            lam.copy_(torch.clamp(lam + mu[..., None] * c, min=0.0))
+            mu.copy_(torch.where(viol > 0.25 * st["prev_viol"],
+                                 torch.clamp(mu * mu_growth, max=mu_max), mu))
+            st["prev_viol"].copy_(viol)
+            st["cost"].copy_(f_now)          # K moves no more after the last update
+            st["scale"].fill_(1.0)
+
+        if keep is None:
+            steps = (first, stepper(step, dev, eager), outer)
+        else:
+            steps = tuple(stepper(f, dev, eager) for f in (first, step, outer))
+            keep.update(state=st, K0=K0, steps=steps)
+    else:
+        steps = keep["steps"]
+        assert K0 is keep["K0"], "a kept solve reads the starts of its first call"
+    run_first, iterate, run_outer = steps
+    run_first()
     for _ in range(outer_iters):
-        scale.fill_(1.0)
         for _ in range(inner_iters):
             iterate()
-        # c is exact at K (carried from the accepted candidate's pass)
-        viol = torch.amax(torch.clamp(c, min=0.0), dim=-1)
-        f_now = f_fn(K)
-        c_max = torch.amax(c, dim=-1)
-        upd = (c_max <= 0.0) & (f_now < f_feas)
-        K_feas = torch.where(upd[..., None], K, K_feas)
-        f_feas = torch.where(upd, f_now, f_feas)
-        v_feas = torch.where(upd, c_max, v_feas)
-        found = found | upd
-        lam.copy_(torch.clamp(lam + mu[..., None] * c, min=0.0))
-        mu.copy_(torch.where(viol > 0.25 * prev_viol, torch.clamp(mu * mu_growth, max=mu_max), mu))
-        prev_viol = viol
+        run_outer()
     if keep is None:
         release(iterate)
-    return ALMResult(k=K, max_violation=prev_viol, cost=f_fn(K), k_feas=K_feas,
-                     found_feas=found, c=c, c0=c0, v_feas=v_feas)
+    return ALMResult(k=st["K"], max_violation=st["prev_viol"],
+                     cost=st["cost"] if outer_iters else f_fn(st["K"]), k_feas=st["K_feas"],
+                     found_feas=st["found"], c=st["c"], c0=st["c0"], v_feas=st["v_feas"])

@@ -8,7 +8,10 @@ Runs the battery driver (``run_batch_stepped``) over the worlds of
 `assets/worlds` (all of them in one batch; T=128, f32, straight HLP, mesh
 oracle by default) for a few iterations and prints one JSON line: each
 iteration's build, solve, roll-and-check and wall seconds (timed to a device
-synchronise), the total seconds and the peak allocated card memory.
+synchronise), the total seconds and the peak allocated card memory; and, per
+iteration (``programs``), the graphs the planner's kept programs captured,
+their cache hits and misses and the card's allocated memory after the
+iteration (captures are iteration 0's and a new bucket's; the rest replay).
 
 ``--tree DIR`` runs the package of another checkout instead of this one (for
 example the parent commit unpacked into a git-ignored directory), so that
@@ -37,6 +40,7 @@ import time
 
 SPLIT = ("ref_waypoints_s", "build_probs_s", "solve_s", "roll_and_check_s", "mesh_refine_s",
          "host_s", "wall_s")
+PROGRAMS = ("program_captures", "program_hits", "program_misses", "memory_allocated", "bucket_culled")
 # the host phases of a battery iteration: (module file, function) -> name.
 # The build, the solve and the move are the trace's split: on the card
 # cProfile recorded no entry for the planner's solve or the ALM loop (their
@@ -114,7 +118,9 @@ def main(argv=None) -> dict:
     out = {"tree": root, "worlds": len(files), "seconds": seconds,
            "max_allocated_gib": torch.cuda.max_memory_allocated() / 2**30
            if dev.type == "cuda" else None,
-           "iterations": [{k: tr[k] for k in (*SPLIT, "active")} for tr in trace]}
+           "iterations": [{k: tr[k] for k in (*SPLIT, "active")} for tr in trace],
+           # absent in a version without kept batched programs
+           "programs": [{k: tr.get(k) for k in PROGRAMS} for tr in trace]}
     if prof is not None:
         prof.disable()
         stats = pstats.Stats(prof).stats     # (file, line, name) -> (cc, nc, tt, ct, callers)

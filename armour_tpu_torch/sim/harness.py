@@ -6,18 +6,20 @@ safety-check loop, batched over worlds.
 
 - ``EpisodeRunner.run_batch``: the JAX package's episode program (one
   ``lax.scan`` over iterations with done-masking, vmapped over worlds)
-  written as an eager loop over iterations with every world in the batch;
+  written as a loop over iterations with every world in the batch, its
+  plan a program kept at (B, cap) across iterations;
   done worlds keep their state and summary, so the loop stops early once
   every world is done without changing the result.
 - ``run_batch_stepped``: the battery driver (`kinova_run_100_worlds.m`):
   reference state -> waypoints (straight line, clearance escalation,
   workspace-path re-plans, configuration-RRT / EE-RRT* guidance) ->
-  ``build_probs`` with culling -> ``solve`` warm-started from the last
-  plan -> plant rollout and safety checks -> exact mesh refinement of the
-  flagged (world, window) pairs -> goal-progress stall detector,
-  stop-rescue and summary.  Only small arrays cross between card and host
-  per iteration: ``feasible``, the flags, the overshoots and q (B x nf);
-  the logged motion crosses for flagged worlds only.
+  the culled build and the solve warm-started from the last plan (programs
+  kept per (B, bucket), ``ArmourPlanner.run_program``) -> plant rollout
+  and safety checks -> exact mesh refinement of the flagged (world,
+  window) pairs -> goal-progress stall detector, stop-rescue and summary.
+  Only small arrays cross between card and host per iteration:
+  ``feasible``, the flags, the overshoots and q (B x nf); the logged
+  motion crosses for flagged worlds only.
 
 Safety oracles run post hoc at check_dt resolution, as in
 `simulator_armtd.m:232-276`: collision (the OBB/AABB screen, refined by the
@@ -271,9 +273,8 @@ class EpisodeRunner:
             if bool(stalled.any()):
                 q_clear = clearance_waypoint(spec, q, goals, obstacles, noise=d.clearance_noise)
                 q_des = torch.where(stalled[:, None], q_clear, q_des)
-            prob, link_gens, _, _ = planner.reachable_sets(q0p, qd0p, qdd0p)
-            prob = prob._replace(hp=planner.buffer(link_gens, zonos, masks))
-            plan = planner.solve(prob, q_des, k_rand=d.k_rand, k_warm=k_prev)
+            plan, prob = planner.run_program(q0p, qd0p, qdd0p, q_des, zonos, masks, d.k_rand,
+                                             k_prev, full_width=True)
             k = torch.nan_to_num(plan.k)
             # k_range is the range the reachable sets were built with: pi/48
             # for Bezier, the velocity-dependent g_k for ARMTD 'orig'
@@ -319,6 +320,7 @@ class EpisodeRunner:
             stall = torch.where(active & ~moved, stall + 1, 0)
             done = done | reached | col | stopped
 
+        planner.batch_programs.clear()
         return EpisodeSummary(**flags, iterations=iters, n_feasible_plans=n_feas)
 
 
@@ -365,7 +367,14 @@ def run_batch_stepped(
     ``generator``, ``true_params``, ``draws``: as in `EpisodeRunner.run_batch`.
     ``trace``: a list that receives one dict per iteration (wall split,
     buckets, feasible count, kernel launches, flagged and confirmed mesh
-    hits); the phases are then timed to a device synchronise.
+    hits, the planner's program captures, hits and misses, and the card's
+    allocated bytes after the iteration); the phases are then timed to a
+    device synchronise.
+
+    The plan of every iteration runs through the planner's batched programs
+    (``ArmourPlanner.run_program``), kept per (B, bucket) across iterations
+    and released when the driver returns, as ``EpisodeRunner.run_batch``
+    releases its own.
     ``progress(it, summary)`` is called after every iteration with the
     summary so far, so that a run cut short still leaves its record.
     """
@@ -584,6 +593,7 @@ def run_batch_stepped(
         if done.all():
             break
         launches0 = kernels.launch_counts()
+        cache0 = planner.batch_programs.stats()
         moves0 = fused_rollout.launches
         t0 = time.perf_counter()
         d = draws(it)
@@ -676,12 +686,11 @@ def run_batch_stepped(
             q_des = t(q_des_np)
         _sync()
         t1 = time.perf_counter()
-        # build_probs culls provably-out-of-reach obstacles per iteration,
-        # so the solve runs at a much smaller bucket
-        probs = planner.build_probs(q0p, qd0p, qdd0p, zonos, masks)
-        _sync()
-        t2 = time.perf_counter()
-        plan = planner.solve(probs, q_des, k_rand=d.k_rand, k_warm=k_prev)
+        # the build culls provably-out-of-reach obstacles per iteration, so
+        # the solve runs at a much smaller bucket (a program kept per bucket)
+        marks = {} if trace is not None else None
+        plan, probs = planner.run_program(q0p, qd0p, qdd0p, q_des, zonos, masks, d.k_rand, k_prev,
+                                          marks=marks)
         feas = plan.feasible.cpu().numpy()
         t3 = time.perf_counter()
 
@@ -752,9 +761,11 @@ def run_batch_stepped(
         if trace is not None:
             t6 = time.perf_counter()
             launches1 = kernels.launch_counts()
+            cache1 = planner.batch_programs.stats()
             trace.append({
                 "iteration": it, "active": int(active.sum()),
-                "ref_waypoints_s": t1 - t0, "build_probs_s": t2 - t1, "solve_s": t3 - t2,
+                "ref_waypoints_s": t1 - t0, "build_probs_s": marks["built"] - t1,
+                "solve_s": t3 - marks["built"],
                 "roll_and_check_s": t4 - t3, "mesh_refine_s": t5 - t4, "host_s": t6 - t5,
                 "wall_s": t6 - t0,
                 "bucket": bucket, "bucket_culled": int(probs.hp.dpos.shape[-2]),
@@ -766,6 +777,8 @@ def run_batch_stepped(
                 "goals": int(summ["goal_reached"].sum()),
                 "guidance_paths": {str(w): {"index": st[1], "length": len(st[0])}
                                    for w, st in rrt_paths.items() if st[0] is not None},
+                **{f"program_{k}": cache1[k] - cache0[k] for k in ("captures", "hits", "misses")},
+                "memory_allocated": torch.cuda.memory_allocated(dev) if dev.type == "cuda" else None,
             })
         if verbose:
             print(f"iter {it}: active={int(active.sum())} "
@@ -773,4 +786,5 @@ def run_batch_stepped(
         if progress is not None:
             progress(it, summary())
 
+    planner.batch_programs.clear()
     return summary()

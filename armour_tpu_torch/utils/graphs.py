@@ -17,11 +17,13 @@ the capture recorded.
 
 ``ProgramCache`` keeps a few programs (objects that own such captures) by
 shape key, least recently used first out, and frees an evicted program's
-graphs and memory pools.
+graphs and memory pools.  A program may read the outputs of another (its
+``parent``): evicting the parent evicts it too.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from collections import OrderedDict
 from typing import Callable, Hashable
@@ -130,12 +132,42 @@ def release(step: Callable[[], None]):
         step.release()
 
 
+def keep_into(kept, value):
+    """``value`` (a tensor, or a tuple or dataclass of them) in the
+    buffers ``kept``: a clone when ``kept`` is None (the step's first, op-by-op
+    run makes the buffers), else copied into them in place (what a capture
+    records).  Returns the buffers."""
+    if kept is None:
+        return tree_map(torch.clone, value)
+    tree_map(torch.Tensor.copy_, kept, value)
+    return kept
+
+
+def tree_map(fn, *trees):
+    """``fn`` over the tensors of matching tuples (NamedTuples too) and
+    dataclasses, the rest of the first tree kept as it is."""
+    x = trees[0]
+    if isinstance(x, torch.Tensor):
+        return fn(*trees)
+    if isinstance(x, tuple):
+        fields = [tree_map(fn, *f) for f in zip(*trees)]
+        return type(x)(*fields) if hasattr(x, "_fields") else tuple(fields)
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{f.name: tree_map(fn, *(getattr(t, f.name) for t in trees))
+                                         for f in dataclasses.fields(x)})
+    return x
+
+
 class ProgramCache:
-    """At most ``capacity`` programs by key, the least recently used evicted
-    first (its ``release()`` is called).  A program is a callable with a
-    ``release()`` and a list ``steps`` of the ``CapturedStep`` objects it
-    owns.  Counts hits, misses, evictions and the graphs captured, and keeps
-    the capture ms of the latest miss (the sum over its steps)."""
+    """At most ``capacity`` programs by key (a tuple), the least recently
+    used evicted first (its ``release()`` is called).  A program is a
+    callable with a ``release()``, a list ``steps`` of the ``CapturedStep``
+    objects it owns and, optionally, a ``parent``: a program of the same
+    cache whose outputs it reads at fixed addresses, evicted with it.  The
+    owner of the cache is held weakly by its programs, so that dropping it
+    releases them (``__del__``).
+    Counts hits, misses, evictions and the graphs captured, and keeps the
+    capture ms of the latest miss (the sum over its steps)."""
 
     def __init__(self, capacity: int = 4):
         self.capacity = capacity
@@ -143,21 +175,24 @@ class ProgramCache:
         self.hits = self.misses = self.evictions = self.captures = 0
         self.last_capture_ms = 0.0
 
-    def run(self, key: Hashable, make: Callable, *args):
+    def run(self, key: Hashable, make: Callable, *args, **kwargs):
         """The program of ``key`` (made by ``make()`` on a miss) called on
-        ``args``."""
+        ``args`` and ``kwargs``."""
         prog = self.entries.get(key)
         if prog is not None:
             self.entries.move_to_end(key)
             self.hits += 1
-            return prog(*args)
+            return prog(*args, **kwargs)
         self.misses += 1
         prog = self.entries[key] = make()
+        spare = (prog, getattr(prog, "parent", None))
         while len(self.entries) > self.capacity:
-            self.entries.popitem(last=False)[1].release()
-            self.evictions += 1
+            old = next((k for k, p in self.entries.items() if p not in spare), None)
+            if old is None:
+                break
+            self._evict(old)
         try:
-            out = prog(*args)
+            out = prog(*args, **kwargs)
         except BaseException:
             del self.entries[key]       # a program whose capture failed is not kept
             prog.release()
@@ -166,6 +201,13 @@ class ProgramCache:
         self.captures += len(done)
         self.last_capture_ms = sum(s.capture_ms for s in done)
         return out
+
+    def _evict(self, key):
+        prog = self.entries.pop(key)
+        self.evictions += 1
+        for k in [k for k, p in self.entries.items() if getattr(p, "parent", None) is prog]:
+            self._evict(k)
+        prog.release()
 
     def stats(self) -> dict:
         return {"hits": self.hits, "misses": self.misses, "captures": self.captures,
@@ -176,3 +218,10 @@ class ProgramCache:
         """Release every program."""
         while self.entries:
             self.entries.popitem(last=False)[1].release()
+
+    def __del__(self):
+        # a program and its steps reference each other (the steps' closures
+        # read the program's buffers), so a cache dropped with its owner
+        # releases them here rather than leaving their graphs and memory
+        # pools to a full garbage collection
+        self.clear()

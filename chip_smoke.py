@@ -306,6 +306,9 @@ def episode_phases(torch, dev, check_and_time, rows, out_dir, n_worlds=100, T=12
           "collision_oracle": "mesh", "iterations": len(trace), "seconds": battery_s,
           "seconds_per_iteration": battery_s / max(len(trace), 1), "launches": counts,
           "rollout_launches": sum(tr["rollout_launches"] for tr in trace),
+          "program_captures": [tr["program_captures"] for tr in trace],
+          "program_hits": [tr["program_hits"] for tr in trace],
+          "memory_allocated": [tr["memory_allocated"] for tr in trace],
           "split_mean_s": {k: statistics.mean(tr[k] for tr in trace) for k in
                            ("ref_waypoints_s", "build_probs_s", "solve_s", "roll_and_check_s",
                             "mesh_refine_s", "host_s", "wall_s")} if trace else {},
@@ -910,9 +913,10 @@ def tool_phases(torch, dev, check_and_time, rows, out_dir):
 
 
 def graph_phases(torch, dev, probs8, probs40, out_dir, T=128):
-    """Phase 18: the CUDA graphs of the solver iteration and of the RK4 step
-    held against the same steps run op by op (every plan_batch mode, SI,
-    rotatotope, two world sets in a row, five controllers in f32 and f64),
+    """Phase 18: the CUDA graphs of the kept plan programs and of the RK4
+    step held against the same steps run op by op (every plan_batch mode,
+    SI, rotatotope: the first call of the programs kept per (B, bucket) and
+    a replay; two world sets in a row; five controllers in f32 and f64),
     with both times and the capture ms (batch-1 plans: latency_batch1).  Every path resets
     the launch counts just before it and reads them just after.  ``dev``
     and ``T`` exist to rehearse the phase at a small size on the CPU (where
@@ -987,24 +991,38 @@ def graph_phases(torch, dev, probs8, probs40, out_dir, T=128):
     for label, pl, args, expect in cases:
         k_rand = pl.random_starts(B, torch.Generator(device=dev).manual_seed(4))
         res, secs, counts = {}, {}, {}
-        for eager in (True, False):
-            res[eager], secs[eager], counts[eager], cap = run(
-                lambda: pl.plan_batch(*args, k_rand=k_rand, eager=eager))
-            assert counts[eager] == dict(zero, **expect), f"graphs {label}: launches {counts[eager]}"
-        a, g = res[True], res[False]
-        equal = {"k": same(a.k, g.k), "feasible": torch.equal(a.feasible, g.feasible),
-                 "max_violation": same(a.max_violation, g.max_violation)}
-        k_diff = float(np.nan_to_num((a.k - g.k).abs().cpu().numpy()).max())
-        assert all(equal.values()) or (equal["feasible"] and k_diff <= 1e-6), \
-            f"graphs {label}: graph against eager {equal}, |dk| {k_diff}"
-        plan_rows[label] = {"eager_s": secs[True], "graph_s": secs[False],
-                            "eager_plans_per_s": B / secs[True], "graph_plans_per_s": B / secs[False],
-                            "capture_ms": cap, "bits_equal": equal, "max_abs_k_diff": k_diff,
+        # eager, then the kept programs' first call (captures) and a replay
+        for key in ("eager", "first", "replay"):
+            res[key], secs[key], counts[key], _ = run(
+                lambda: pl.plan_batch(*args, k_rand=k_rand, eager=key == "eager"))
+            assert counts[key] == dict(zero, **expect), f"graphs {label}: launches {counts[key]}"
+            if key == "first":
+                cache = pl.batch_programs.stats()
+                cap = sum(st.capture_ms for p in pl.batch_programs.entries.values() for st in p.steps
+                          if isinstance(st, CapturedStep))
+        assert pl.batch_programs.stats()["captures"] == cache["captures"], f"graphs {label}: recaptured"
+        a = res["eager"]
+        equal = {k: {"k": same(a.k, g.k), "feasible": torch.equal(a.feasible, g.feasible),
+                     "max_violation": same(a.max_violation, g.max_violation)}
+                 for k, g in (("first", res["first"]), ("replay", res["replay"]))}
+        k_diff = max(float(np.nan_to_num((a.k - res[k].k).abs().cpu().numpy()).max())
+                     for k in ("first", "replay"))
+        assert all(all(e.values()) for e in equal.values()), \
+            f"graphs {label}: kept plan against eager {equal}, |dk| {k_diff}"
+        g = res["replay"]
+        plan_rows[label] = {"eager_s": secs["eager"], "graph_s": secs["replay"],
+                            "first_call_s": secs["first"],
+                            "eager_plans_per_s": B / secs["eager"],
+                            "graph_plans_per_s": B / secs["replay"],
+                            "capture_ms": cap, "graphs": cache["captures"],
+                            "program_keys": [str(k) for k in pl.batch_programs.entries],
+                            "bits_equal": equal, "max_abs_k_diff": k_diff,
                             "feasible_fraction": float(g.feasible.float().mean()),
-                            "launches_graph": counts[False]}
+                            "launches_graph": counts["replay"]}
+        pl.batch_programs.clear()
         emit({"phase": "graphs", "path": "plan_batch", "mode": label, "batch": B, "T": T,
               "dtype": "float32", **plan_rows[label]})
-        del res, a, g
+        del res, a, g, pl
     del cases
     # two different world sets in a row: each graph belongs to its own solve
     pl = ArmourPlanner(spec, cfg, f32, device=dev)
@@ -1050,8 +1068,9 @@ def graph_phases(torch, dev, probs8, probs40, out_dir, T=128):
 
 def latency_phase(torch, dev, check_and_time, rows, probs8, probs40, n_replays=5, T=128):
     """Phase 4b, latency_batch1: plan() through its program kept per
-    obstacle bucket (the build graph and the solver's inner-iteration graph
-    kept across calls): the first call (capture included) and ``n_replays``
+    obstacle bucket (five graphs kept across calls: the build, the solver's
+    first bank pass, its inner iteration, its outer update and the
+    verification): the first call (capture included) and ``n_replays``
     replays on other worlds of the same bucket; then, through ``plan`` and its
     cache, the bucket sequence 8 -> 16 -> 8.  Every plan is held to the
     eager ``plan`` (op by op, no program) to the bit (k, feasible,
@@ -1127,7 +1146,8 @@ def latency_phase(torch, dev, check_and_time, rows, probs8, probs40, n_replays=5
         replays.append(ms)
     program = {
         "first_call_ms": first_ms, "first_call_launches": n0,
-        "capture_ms": [s.capture_ms for s in prog.steps if isinstance(s, CapturedStep)],
+        "capture_ms": {name: s.capture_ms for name, s in zip(PlanProgram.STEPS, prog.steps)
+                       if isinstance(s, CapturedStep)},
         "graphs": sum(isinstance(s, CapturedStep) for s in prog.steps),
         "replay_median_ms": statistics.median(replays), "replay_runs_ms": replays,
         "launches_per_replay": passes, "bits_equal": True}
@@ -1689,28 +1709,48 @@ def main() -> int:
     passes = cfg.nlp_outer_iters * cfg.nlp_inner_iters + 1
     main_name = "fused_collision_value_jac_multi"
 
+    def same_bits(a, b):
+        """k, feasible and max_violation of two plans equal to the bit."""
+        return {f: torch.equal(*(getattr(r, f).contiguous().view(torch.int32)
+                                 if getattr(r, f).dtype == torch.float32 else getattr(r, f)
+                                 for r in (a, b)))
+                for f in ("k", "feasible", "max_violation")}
+
     def run_point(probs, label, reps=2):
+        """plan_batch through the programs kept per (B, bucket): the first
+        call (captures included) and ``reps`` replays, each held to the
+        eager plan_batch to the bit with 65 launches; then the build and
+        solve split of one more replay (device synchronised between)."""
         args = (probs.q0, probs.qd0, probs.qdd0, probs.q_des, probs.zonos, probs.masks)
-        planner.plan_batch(*args)                               # warm-up
-        torch.cuda.synchronize()
-        secs, deltas, res = [], [], None
-        for _ in range(reps):
+        eager_s, ref = wall(torch, lambda: planner.plan_batch(*args, eager=True), 1)
+        secs, deltas, res, equal = [], [], None, []
+        for _ in range(reps + 1):
             kernels.reset_launch_counts()
             dt, res = wall(torch, lambda: planner.plan_batch(*args), 1)
             deltas.append(kernels.launch_counts())
             secs.append(dt)
+            equal.append(same_bits(res, ref))
         for d in deltas:
             assert d[main_name] == passes, f"{label}: {d} launches, expected {passes}"
-        t_build, prob = wall(torch, lambda: planner.build_probs(*args[:3], *args[4:]), 1)
-        t_solve, _ = wall(torch, lambda: planner.solve(prob, probs.q_des), 1)
+        assert all(all(e.values()) for e in equal), f"{label}: kept plan against eager {equal}"
+        cache = planner.batch_programs.stats()
+        cap = {str(key): sum(st.capture_ms for st in p.steps if isinstance(st, CapturedStep))
+               for key, p in planner.batch_programs.entries.items()}
+        marks = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, prob = planner.run_program(*args, marks=marks)
+        t_build, t_solve = marks["built"] - t0, marks["solved"] - marks["built"]
         feas = res.feasible.cpu().numpy()
         k = res.k.cpu().numpy()
         assert np.all(np.isfinite(k[feas])) and np.all(np.isnan(k[~feas]))
         assert np.all(np.abs(k[feas]) <= 1.0)
-        sec = statistics.median(secs)
-        emit({"phase": "main_path", "point": label, "batch": B, "capture_ms": CapturedStep.last_capture_ms,
-              "T": cfg.num_time_steps, "seconds_per_batch": sec, "seconds_runs": secs,
+        sec = statistics.median(secs[1:])
+        emit({"phase": "main_path", "point": label, "batch": B, "T": cfg.num_time_steps,
+              "first_call_s": secs[0], "capture_ms": cap,
+              "seconds_per_batch": sec, "seconds_runs": secs[1:], "eager_s": eager_s,
               "plans_per_s": B / sec, "feasible_fraction": float(feas.mean()),
+              "bits_equal_to_eager": True, "program_cache": cache,
               "bucket": int(prob.hp.dpos.shape[-2]), "launches_per_plan_batch": deltas[-1],
               "build_s": t_build, "solve_s": t_solve,
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
@@ -1721,10 +1761,7 @@ def main() -> int:
     for name, r in rows.items():
         if name != "fused_rollout":     # its launches are the closed loop's (phase 6)
             r["launches"] = counts8[r["wrapper"]]
-    # one timed repetition here and three latency runs below: the modes,
-    # the closed loop and the episodes further down take the time these
-    # repetitions gave up
-    _, _, counts40 = run_point(probs40, "40obs", reps=1)
+    _, _, counts40 = run_point(probs40, "40obs")
     rows[wide_name]["launches"] = counts40[main_name]
 
     batch1_row = latency_phase(torch, dev, check_and_time, rows, probs8, probs40)
@@ -1750,6 +1787,7 @@ def main() -> int:
     emit({"phase": "check_path", "launches": check_counts,
           "max_collision_value_feasible": float(worst[feas].max()) if bool(feas.any()) else None,
           "feasible": int(feas.sum())})
+    planner.batch_programs.clear()       # prob8's buffers stay until it goes
 
 
     # ---- 5. the other planner modes at full width --------------------------

@@ -186,7 +186,9 @@ def test_cached_plan_equals_eager_plan_to_the_bit(card, mode):
         assert _same(got.cost, ref.cost) and _same(got.torque_radius, ref.torque_radius), i
     stats = pl.programs.stats()
     assert (stats["misses"], stats["hits"]) == (2, 4)
-    assert stats["captures"] == 4           # a build graph and an inner-iteration graph per key
+    # per key: the build, the first bank pass, the iteration, the outer
+    # update and the verification
+    assert stats["captures"] == 10
 
 
 def test_cached_plan_frees_its_pools_on_eviction(card):
@@ -237,6 +239,87 @@ def test_repeated_plans_and_rollouts_hold_no_memory(card):
     assert torch.cuda.memory_allocated() <= base + (1 << 20), (base, torch.cuda.memory_allocated())
 
 
+def _with_kept(pl, args, n_kept):
+    """``args`` (B worlds of 40 live obstacles) with ``n_kept`` obstacles
+    left to each world by the planner's culling: the extra kept ones are
+    masked out, and dropped slots take copies of a kept one where a world
+    keeps fewer (a world that keeps none stays so).  Chooses the culled
+    bucket."""
+    q0, qd0, qdd0, q_des, zonos, masks = args
+    _, _, aabb_c, aabb_r = pl.reachable_sets(q0, qd0, qdd0)
+    z = torch.as_tensor(zonos, dtype=pl.dtype, device="cuda")
+    keep = pl.cull_keep(aabb_c, aabb_r, z, torch.as_tensor(masks, device="cuda")).cpu().numpy()
+    z, m = np.array(z.cpu().numpy(), copy=True), np.array(masks, copy=True)
+    for w in range(len(keep)):
+        kept, dropped = np.nonzero(keep[w])[0], np.nonzero(~keep[w] & m[w])[0]
+        m[w, kept[n_kept:]] = False
+        if len(kept):
+            z[w, dropped[: max(n_kept - len(kept), 0)]] = z[w, kept[0]]
+    return (q0, qd0, qdd0, q_des, z, m)
+
+
+def _bucket_worlds(pl, poses):
+    """Three world sets of culled buckets 8, 16 and 24: the 40 obstacles of
+    the worlds of seed 7 around the start states and goals of ``poses``,
+    with 6, 12 and 20 kept per world."""
+    base = (*poses[:4], *_worlds("default", 40, 7)[4:])
+    return [_with_kept(pl, base, n) for n in (6, 12, 20)]
+
+
+@pytest.mark.parametrize("mode", ["default", "orig", "12starts", "smooth", "grasp", "bernstein+si"])
+def test_kept_plan_batch_equals_eager_across_world_sets_and_buckets(card, mode):
+    """``plan_batch`` through its programs kept per (B, bucket): the first
+    call and the replays of each key, across two world sets at one key and
+    the culled bucket sequence 16 -> 8 -> 16, against the eager plan to the
+    bit; every plan counts the launches that run, and a replay captures
+    nothing."""
+    pl = _planner(mode, card)
+    if mode == "smooth":
+        expect = {MAIN: 0, "fused_collision_values_multi": 1, "fused_collision_value_jac": 0}
+    else:
+        expect = {MAIN: PASSES * (2 if mode == "12starts" else 1),
+                  "fused_collision_values_multi": 0, "fused_collision_value_jac": 0}
+    plain = _worlds(mode)                                   # bucket 8: one program
+    other = _worlds(mode, seed=3) if mode != "grasp" else \
+        tuple(np.asarray(x) + 0.02 * (i in (0, 3)) for i, x in enumerate(plain))
+    b8, b16, _ = _bucket_worlds(pl, plain)
+    seq = [plain, other, plain, b16, b8, b16]
+    for i, args in enumerate(seq):
+        k_rand = pl.random_starts(B, torch.Generator(device=card).manual_seed(i))
+        ref = pl.plan_batch(*args, k_rand=k_rand, eager=True)
+        before = pl.batch_programs.stats()
+        kernels.reset_launch_counts()
+        got = pl.plan_batch(*args, k_rand=k_rand)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts() == expect, i
+        assert torch.equal(got.feasible, ref.feasible), i
+        assert _same(got.k, ref.k) and _same(got.max_violation, ref.max_violation), i
+        assert _same(got.cost, ref.cost) and _same(got.torque_radius, ref.torque_radius), i
+        after = pl.batch_programs.stats()
+        if i in (1, 2, 5):                                   # a key met before: replays only
+            assert after["captures"] == before["captures"] and after["misses"] == before["misses"], i
+    keys = list(pl.batch_programs.entries)
+    assert (B, 8) in keys and (B, CFG.max_obstacles, "reach") in keys, keys
+    assert len({k[2] for k in keys if len(k) == 3} - {"reach"}) == 2, keys
+
+
+def test_repeated_batched_plans_over_three_buckets_hold_no_memory(card):
+    """Once every bucket's program is kept, 20 more batched plans over the
+    three buckets allocate nothing that stays."""
+    pl = _planner("default", card)
+    sets = _bucket_worlds(pl, _worlds("default"))
+    for args in sets * 2:
+        pl.plan_batch(*args)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    for i in range(20):
+        pl.plan_batch(*sets[i % 3])
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() <= base + (1 << 20), (base, torch.cuda.memory_allocated())
+    assert pl.batch_programs.stats()["misses"] == 4            # the stage and three buckets
+    pl.batch_programs.clear()
+
+
 def test_captured_step_replays_and_counts_what_runs(card):
     x = torch.zeros(4, device=card)
     step = CapturedStep(lambda: x.add_(1.0))
@@ -264,3 +347,20 @@ def test_cached_plan_whose_capture_syncs_raises_and_is_not_kept(card):
     with pytest.raises(RuntimeError):
         pl.plan(*_plan_worlds("default", card)[0])
     assert not pl.programs.entries
+
+
+def test_batched_plan_whose_capture_syncs_raises_and_is_not_kept(card):
+    """A culling stage that reads a device value on the host cannot be
+    captured: ``plan_batch`` raises and keeps no program."""
+    pl = _planner("default", card)
+    cull = pl.cull_keep
+
+    def syncing(*args):
+        keep = cull(*args)
+        float(keep.sum())
+        return keep
+
+    pl.cull_keep = syncing
+    with pytest.raises(RuntimeError):
+        pl.plan_batch(*_worlds("default", 40, 7))
+    assert not pl.batch_programs.entries

@@ -78,7 +78,7 @@ def test_cached_plan_equals_eager_plan_across_worlds_and_buckets(worlds):
     stats = pl.programs.stats()
     assert (stats["misses"], stats["hits"], stats["evictions"], stats["entries"]) == (2, 2, 0, 2)
     assert stats["captures"] == 0        # nothing is captured on the CPU
-    assert sorted(pl.programs.entries) == [8, 16]
+    assert sorted(pl.programs.entries) == [(1, 8), (1, 16)]
 
 
 def test_cache_evicts_past_its_bound_and_releases(worlds):
@@ -156,12 +156,13 @@ def test_loops_release_their_capture(worlds, monkeypatch):
                   CFG.duration, device="cpu", dtype=F64)
     assert len(_FakeCapture.made) == 2 and all(s.step is None for s in _FakeCapture.made)
     keep = {}
+    monkeypatch.setattr(armour, "stepper", fake)   # the build and verification graphs of a program
     pl.solve(prob, p.q_des, keep=keep)
-    assert keep["state"][-1].step is not None
-    monkeypatch.setattr(armour, "stepper", fake)   # the build graph of a program
+    assert all(s.step is not None for s in (*keep["steps"], keep["verify"]))
     b, args = pl.plan_args(*worlds[0][0], k_rand=worlds[0][1])
     prog = PlanProgram(pl, b)
     prog(*args)
-    assert [s.step is not None for s in prog.steps] == [True, True]
+    # the build, the first bank pass, the iteration, the outer update, the verification
+    assert [s.step is not None for s in prog.steps] == [True] * 5
     prog.release()
-    assert all(s.step is None for s in _FakeCapture.made[-2:])
+    assert all(s.step is None for s in _FakeCapture.made[-5:])
