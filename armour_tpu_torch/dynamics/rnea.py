@@ -27,6 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from armour_tpu_torch.device import const
 from armour_tpu_torch.ops.interval import Interval
 from armour_tpu_torch.robots.spec import RobotSpec
 
@@ -58,8 +59,8 @@ def joint_rotations(spec: RobotSpec, q: torch.Tensor, consts: "LinkConstants | N
     as device tensors, so a loop does not copy them from the host on every
     call."""
     if consts is None:
-        fixed = torch.as_tensor(spec.fixed_rotations(), dtype=q.dtype, device=q.device)
-        masks = torch.as_tensor(_rotation_masks(spec), dtype=q.dtype, device=q.device)
+        fixed = const(spec.fixed_rotations(), q.dtype, q.device)
+        masks = const(_rotation_masks(spec), q.dtype, q.device)
     else:
         fixed, masks = consts.fixed, consts.rot_masks
     nf = spec.n_factors
@@ -78,7 +79,7 @@ def forward_kinematics(spec: RobotSpec, q: torch.Tensor):
     origin; link volumes are R_w @ link_zono + p).
     """
     R = joint_rotations(spec, q)
-    trans = torch.as_tensor(spec.trans, dtype=q.dtype, device=q.device)
+    trans = const(spec.trans, q.dtype, q.device)
     Rw = torch.eye(3, dtype=q.dtype, device=q.device).expand(q.shape[:-1] + (3, 3))
     pw = q.new_zeros(q.shape[:-1] + (3,))
     Rws, pws = [], []
@@ -111,16 +112,20 @@ class LinkConstants(NamedTuple):
 def link_constants(spec: RobotSpec, like: torch.Tensor, mass=None, com=None,
                    inertia=None) -> LinkConstants:
     """The spec's constants on the device and dtype of ``like``; ``mass``,
-    ``com`` and ``inertia`` override the nominal values (arrays or tensors)."""
+    ``com`` and ``inertia`` override the nominal values (arrays or tensors).
+    Host data comes through `device.const` (made once, so a captured step
+    may call this)."""
     def t(x):
-        return torch.as_tensor(x, dtype=like.dtype, device=like.device)
+        if isinstance(x, torch.Tensor):
+            return torch.as_tensor(x, dtype=like.dtype, device=like.device)
+        return const(x, like.dtype, like.device)
 
     return LinkConstants(
         fixed=t(spec.fixed_rotations()),
         rot_masks=t(_rotation_masks(spec)),
         axes=t(np.sign(spec.axes[:spec.n_factors, None])
                * np.eye(3)[np.abs(spec.axes[:spec.n_factors]) - 1]),
-        continuous=torch.as_tensor(spec.continuous_joints, device=like.device),
+        continuous=const(spec.continuous_joints, device=like.device),
         trans=t(spec.trans),
         com=t(spec.com if com is None else com),
         mass=t(spec.mass if mass is None else mass),

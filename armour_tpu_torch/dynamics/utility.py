@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 from torch.func import jacfwd
 
+from armour_tpu_torch.device import const
 from armour_tpu_torch.dynamics.rnea import (
     bias_forces,
     forward_kinematics,
@@ -24,7 +25,7 @@ def ee_pose(spec: RobotSpec, q):
     """End-effector (R, p) in the world frame (FKinSpace equivalent)."""
     Rw, pw = forward_kinematics(spec, q)
     R_ee = Rw[..., -1, :, :]
-    t_ee = torch.as_tensor(spec.trans[spec.n_joints], dtype=q.dtype, device=q.device)
+    t_ee = const(spec.trans[spec.n_joints], q.dtype, q.device)
     p_ee = pw[..., -1, :] + torch.einsum("...ij,j->...i", R_ee, t_ee)
     return R_ee, p_ee
 

@@ -537,7 +537,7 @@ class ArmourPlanner:
 
     def run_program(self, q0, qd0, qdd0, q_des, zonos, masks, k_rand=None, k_warm=None,
                     generator: torch.Generator | None = None, full_width: bool = False,
-                    marks: dict | None = None):
+                    marks: dict | None = None, eager: bool = False):
         """(plan, problem) of B worlds through the programs kept in
         ``batch_programs``, the counterpart of the JAX package's compiled
         batched build and solve (`armour.py:124-189`).  The random starts are
@@ -558,12 +558,22 @@ class ArmourPlanner:
 
         ``marks``: a dict that receives the host clock (``time.perf_counter``)
         after the build and after the solve, each taken after a device
-        synchronise (the episode drivers' trace)."""
+        synchronise (the episode drivers' trace).
+
+        ``eager=True`` builds (``build_fixed`` at full width, else
+        ``build_probs``) and solves op by op with no program, to hold the
+        two against each other; the problem is then the call's own."""
         q0, qd0, qdd0, q_des, zonos = (self._t(x) for x in (q0, qd0, qdd0, q_des, zonos))
         masks = self._t(masks, torch.bool)
         B, cap = masks.shape
         k_rand = self.random_starts(B, generator) if k_rand is None else self._t(k_rand)
         k_warm = torch.zeros_like(k_rand[:, 0]) if k_warm is None else self._t(k_warm)
+        if eager:
+            prob = (self.build_fixed if full_width else self.build_probs)(q0, qd0, qdd0, zonos, masks)
+            _mark(marks, "built", self.device)
+            res = self.solve(prob, q_des, k_rand=k_rand, k_warm=k_warm, eager=True)
+            _mark(marks, "solved", self.device)
+            return res, prob
         progs = self.batch_programs
         b = cap if full_width else obstacle_bucket(masks)
         if full_width or not self.cfg.obstacle_culling or b <= 8:
@@ -639,9 +649,12 @@ class ArmourPlanner:
         return self.solve(prob, q_des, k_rand=k_rand, k_warm=k_warm, eager=eager)
 
 
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _mark(marks: dict | None, name: str, device):
+    """``marks[name]``: the host clock after a device synchronise."""
+    if marks is not None:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        marks[name] = time.perf_counter()
 
 
 class ReachStage:
@@ -765,15 +778,11 @@ class PlanProgram:
         for buf, i in zip(self.inputs, self.take):
             buf.copy_(args[i])
         self.build()
-        if marks is not None:
-            _sync(self.device)
-            marks["built"] = time.perf_counter()
+        _mark(marks, "built", self.device)
         q_des, k_rand, k_warm = self.solve_inputs
         res = self.planner.solve(self.prob, q_des, k_rand=k_rand, k_warm=k_warm, keep=self.keep)
         res = tree_map(torch.clone, res)
-        if marks is not None:
-            _sync(self.device)
-            marks["solved"] = time.perf_counter()
+        _mark(marks, "solved", self.device)
         return res
 
     def release(self):

@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from armour_tpu_torch.collision.zonotope import ObstacleSet
-from armour_tpu_torch.device import resolve_device, to_numpy
+from armour_tpu_torch.device import const, resolve_device, to_numpy
 from armour_tpu_torch.dynamics.rnea import forward_kinematics
 from armour_tpu_torch.dynamics.utility import ee_jacobian, ee_pose
 from armour_tpu_torch.planner.armour import wrap_to_pi
@@ -143,7 +143,7 @@ def straight_line_waypoint(spec: RobotSpec, q_cur, goal, lookahead: float = 1.0)
     """q_cur + lookahead * unit(goal - q_cur), angdiff on continuous joints;
     batched over the leading dims of q_cur (..., nf)."""
     d = goal - q_cur
-    d = torch.where(torch.as_tensor(spec.continuous_joints, device=d.device), wrap_to_pi(d), d)
+    d = torch.where(const(spec.continuous_joints, device=d.device), wrap_to_pi(d), d)
     norm = torch.linalg.vector_norm(d, dim=-1, keepdim=True)
     return q_cur + lookahead * d / torch.where(norm > 1e-9, norm, 1.0)
 
@@ -183,7 +183,7 @@ def clearance_waypoint(
     hits = arm_collision_check(spec, cands, obs_inflated)                # (..., M+1)
 
     d = cands - goal[..., None, :]
-    d = torch.where(torch.as_tensor(spec.continuous_joints, device=d.device), wrap_to_pi(d), d)
+    d = torch.where(const(spec.continuous_joints, device=d.device), wrap_to_pi(d), d)
     dist = torch.linalg.vector_norm(d, dim=-1)
     # prefer the pure straight-line candidate slightly (index 0)
     dist[..., 0] += -1e-3

@@ -3,6 +3,7 @@
     python -m armour_tpu_torch.profile_battery [--iterations 3] [--tree DIR]
     python -m armour_tpu_torch.profile_battery --device cpu --iterations 1 \\
         --max-worlds 1 --time-steps 16 --collision-oracle box
+    python -m armour_tpu_torch.profile_battery --episode 128 [--iterations 8] [--calls 2] [--tree DIR]
 
 Runs the battery driver (``run_batch_stepped``) over the worlds of
 `assets/worlds` (all of them in one batch; T=128, f32, straight HLP, mesh
@@ -10,8 +11,19 @@ oracle by default) for a few iterations and prints one JSON line: each
 iteration's build, solve, roll-and-check and wall seconds (timed to a device
 synchronise), the total seconds and the peak allocated card memory; and, per
 iteration (``programs``), the graphs the planner's kept programs captured,
-their cache hits and misses and the card's allocated memory after the
-iteration (captures are iteration 0's and a new bucket's; the rest replay).
+their cache hits and misses, those of the driver's kept stages
+(``stage_*``) and the card's allocated memory after the iteration (captures
+are iteration 0's and a new bucket's; the rest replay).
+
+``--episode B`` times ``EpisodeRunner.run_batch`` instead, on B worlds of the
+8-obstacle problem set (seed 0) with goals 0.3-0.6 rad from each start in
+every joint, for ``--iterations``: the host clock and the allocated memory
+at each iteration's draw (``iteration_s``: from one draw to the next, the
+last to the end of the run after a synchronise; a kept loop on the card runs
+one iteration ahead, so the spacing is an iteration's wall once it runs
+steadily) and the kept programs' counts; ``--calls N`` runs the episode N
+times in the process (each call captures its programs anew; the first also
+pays the process's one-time costs).
 
 ``--tree DIR`` runs the package of another checkout instead of this one (for
 example the parent commit unpacked into a git-ignored directory), so that
@@ -40,7 +52,8 @@ import time
 
 SPLIT = ("ref_waypoints_s", "build_probs_s", "solve_s", "roll_and_check_s", "mesh_refine_s",
          "host_s", "wall_s")
-PROGRAMS = ("program_captures", "program_hits", "program_misses", "memory_allocated", "bucket_culled")
+PROGRAMS = ("program_captures", "program_hits", "program_misses", "stage_captures", "stage_hits",
+            "stage_misses", "memory_allocated", "bucket_culled")
 # the host phases of a battery iteration: (module file, function) -> name.
 # The build, the solve and the move are the trace's split: on the card
 # cProfile recorded no entry for the planner's solve or the ALM loop (their
@@ -66,6 +79,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None, help="torch device (default: the card)")
     ap.add_argument("--profile-from", type=int, default=None, metavar="N",
                     help="profile the host from iteration N to the end")
+    ap.add_argument("--episode", type=int, default=None, metavar="B",
+                    help="time run_batch on B worlds of the 8-obstacle problem set instead")
+    ap.add_argument("--calls", type=int, default=1, help="run_batch calls with --episode")
     args = ap.parse_args(argv)
 
     if args.tree:
@@ -99,6 +115,8 @@ def main(argv=None) -> dict:
         if dev.type == "cuda":
             torch.cuda.synchronize()
 
+    if args.episode is not None:
+        return _episode(args, runner, root, gen, sync)
     trace = []
     prof = cProfile.Profile() if args.profile_from is not None else None
 
@@ -133,6 +151,44 @@ def main(argv=None) -> dict:
         out["host_profile"] = {"from": args.profile_from, "iterations": len(late),
                                "wall_s": sum(tr["wall_s"] for tr in late),
                                "phase_s": phases}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def _episode(args, runner, root, gen, sync) -> dict:
+    import numpy as np
+    import torch
+
+    from armour_tpu_torch.problems import problem_set
+    from armour_tpu_torch.sim.harness import generator_draws
+
+    cfg, dev, B = runner.plan_cfg, runner.device, args.episode
+    p = problem_set(cfg, B, n_obs=8, seed=0, device=dev)
+    goals = p.q0 + 0.3 * np.sign(p.q_des - p.q0) + 0.3 * (p.q_des - p.q0) / cfg.k_range
+    programs = getattr(runner, "programs", None)      # absent before the kept episode program
+    calls = []
+    for _ in range(args.calls):
+        inner = generator_draws(runner.planner, runner.sim_cfg, B, gen)
+        stamps, memory = [], []
+
+        def draws(i, inner=inner, stamps=stamps, memory=memory):
+            stamps.append(time.perf_counter())
+            memory.append(torch.cuda.memory_allocated() if dev.type == "cuda" else None)
+            return inner(i)
+
+        sync()
+        t0 = time.perf_counter()
+        s = runner.run_batch(p.q0, goals, p.zonos, p.masks, gen, draws=draws)
+        sync()
+        end = time.perf_counter()
+        calls.append({"seconds": end - t0, "iteration_s": np.diff(stamps + [end]).tolist(),
+                      "memory_allocated": memory, "iterations_max": int(s.iterations.max()),
+                      "n_feasible_plans": int(s.n_feasible_plans.sum())})
+    out = {"tree": root, "episode_worlds": B, "calls": calls,
+           "max_allocated_gib": torch.cuda.max_memory_allocated() / 2**30
+           if dev.type == "cuda" else None,
+           "episode_programs": programs.stats() if programs is not None else None,
+           "plan_programs": runner.planner.batch_programs.stats()}
     print(json.dumps(out), flush=True)
     return out
 

@@ -40,7 +40,7 @@ from armour_tpu_torch.control.robust import (
     pid_control,
     robust_control,
 )
-from armour_tpu_torch.device import resolve_device
+from armour_tpu_torch.device import const, resolve_device
 from armour_tpu_torch.dynamics.rnea import joint_rotations, link_constants, rnea
 from armour_tpu_torch.jrs.armtd import armtd_ref
 from armour_tpu_torch.jrs.bezier import bezier_ref
@@ -229,7 +229,7 @@ def rollout_plain(
 
     # per-step host values as device tables, read at the device step index
     step_i = torch.zeros(1, dtype=torch.long, device=dev)
-    t_tab = torch.tensor([i * dt for i in range(n_steps)], dtype=dtype, device=dev)
+    t_tab = const([i * dt for i in range(n_steps)], dtype, dev)
     if controller == "ilqr":
         # TVLQR backward pass once per rollout; gains looked up per step
         lqr_K, _ = tvlqr_gain_schedule(
@@ -239,8 +239,8 @@ def rollout_plain(
         # the ratio is, while (i * dt) / check_dt can round under a knot
         # boundary (0.29 / 0.01 < 29); the JAX package's compiled rollout
         # folds the constants the same way
-        knot_tab = torch.tensor([min(int(i * (dt / sim.check_dt)), n_knots - 1)
-                                 for i in range(n_steps)], dtype=torch.long, device=dev)
+        knot_tab = const([min(int(i * (dt / sim.check_dt)), n_knots - 1)
+                          for i in range(n_steps)], torch.long, dev)
 
     def control(q, qd, i_err, q_des, qd_des, qdd_des):
         if noise is None:
@@ -269,8 +269,8 @@ def rollout_plain(
     ones = (1,) * (q.ndim - 1)
     unit_acc = torch.cat([torch.eye(nf, dtype=dtype, device=dev),
                           torch.zeros((1, nf), dtype=dtype, device=dev)]).reshape((nf + 1,) + ones + (nf,))
-    bias_row = torch.zeros((nf + 1,) + ones + (1,), dtype=dtype, device=dev)
-    bias_row[nf] = 1.0
+    bias_row = torch.cat([torch.zeros((nf,) + ones + (1,), dtype=dtype, device=dev),
+                          torch.ones((1,) + ones + (1,), dtype=dtype, device=dev)])
     gravity_rows = bias_row[..., 0]
 
     def plant_acc(q, qd, u):
@@ -335,7 +335,7 @@ def rollout_plain(
     release(advance)
 
     log = RolloutLog(
-        t=torch.tensor([h[0] for h in hist], dtype=dtype, device=dev),
+        t=const([h[0] for h in hist], dtype, dev),
         **{name: torch.stack([h[j] for h in hist], dim=-2)
            for j, name in enumerate(("q", "qd", "q_ref", "qd_ref", "u"), start=1)})
     return state_q, state_qd, log

@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -65,9 +66,13 @@ from armour_tpu_torch.robots.spec import RobotSpec
 from armour_tpu_torch.sim.agent import TrajParams, TrueParams, rollout, rollout_direct, traj_eval
 from armour_tpu_torch.sim.rollout_kernel import fused_rollout
 from armour_tpu_torch.sim.world import arm_collision_check, goal_check, goal_check_ee
+from armour_tpu_torch.utils.graphs import (KeptFunction, ProgramCache, keep_into, release, stepper,
+                                            tree_map)
 
 CLEARANCE_SAMPLES = 32   # clearance_waypoint's n_samples
 SCAN_STALL = 3           # the episode program's clearance threshold (a constant there)
+FLAGS = ("goal_reached", "collision", "torque_violation", "joint_limit_violation",
+         "ultimate_bound_violation", "stopped")
 
 
 class EpisodeSummary(NamedTuple):
@@ -172,6 +177,48 @@ def _limits(spec: RobotSpec, dtype, dev) -> _Limits:
                    t(spec.torque_limits), spec.qe, 2.0 * spec.ultimate_bound)
 
 
+class _Episode(NamedTuple):
+    """What ``run_batch`` holds fixed over an episode: the goals, what
+    success is checked against (``EpisodeRunner._target``), the obstacles
+    (as given, and shaped against a move's log), the limits and the plant's
+    true parameters."""
+
+    goals: torch.Tensor
+    target: torch.Tensor
+    obstacles: ObstacleSet
+    obs_log: ObstacleSet
+    lim: _Limits
+    tp: TrueParams
+
+
+class _Loop(NamedTuple):
+    """The state of ``run_batch``'s loop, (B, ...) each."""
+
+    q: torch.Tensor
+    qd: torch.Tensor
+    traj: TrajParams            # the trajectory tracked
+    k_prev: torch.Tensor        # the last plan, the next solve's warm start
+    fails: torch.Tensor         # consecutive infeasible plans
+    stall: torch.Tensor         # consecutive replans without motion
+    iters: torch.Tensor
+    n_feas: torch.Tensor
+    done: torch.Tensor
+    flags: tuple                # ``FLAGS`` in order
+
+    @staticmethod
+    def first(starts, duration: float) -> "_Loop":
+        """At rest at ``starts``, tracking the start, nothing counted."""
+        B, dt, dev = starts.shape[0], starts.dtype, starts.device
+        zeros = torch.zeros_like(starts)
+        count = torch.zeros(B, dtype=torch.int32, device=dev)
+        false = torch.zeros(B, dtype=torch.bool, device=dev)
+        traj = TrajParams(starts, zeros, zeros, zeros, torch.full((B,), duration, dtype=dt, device=dev))
+        return _Loop(starts, zeros, traj, zeros, count, count, count, count, false, (false,) * len(FLAGS))
+
+    def summary(self) -> EpisodeSummary:
+        return EpisodeSummary(*self.flags, iterations=self.iters, n_feasible_plans=self.n_feas)
+
+
 @dataclasses.dataclass
 class EpisodeRunner:
     """Episodes of one planner configuration on one device.
@@ -223,7 +270,7 @@ class EpisodeRunner:
 
     def run_batch(self, starts, goals, zonos, masks, generator: torch.Generator | None = None,
                   true_params: TrueParams | None = None,
-                  draws: Callable[[int], Draws] | None = None) -> EpisodeSummary:
+                  draws: Callable[[int], Draws] | None = None, eager: bool = False) -> EpisodeSummary:
         """B episodes with the semantics of the JAX package's episode
         program: the single-world plan (no culling, full capacity), a stall
         counted on motion (||q_n - q|| <= 5e-3) that swaps in the clearance
@@ -232,96 +279,297 @@ class EpisodeRunner:
         starts/goals (B, nf), zonos (B, cap, 4, 3), masks (B, cap).
         ``generator`` (on the runner's device, seeded 0 when None) makes
         every draw not given: ``true_params`` (B, n_joints) fields and the
-        per-iteration ``draws``."""
-        spec, pcfg, scfg, planner = self.spec, self.plan_cfg, self.sim_cfg, self.planner
+        per-iteration ``draws``.  A ``draws`` callable of the caller's may be
+        called for one iteration more than the op-by-op loop calls it (the
+        card's order, see ``EpisodeProgram``), an iteration that changes
+        nothing; draws made here from ``generator`` are then given back to
+        it, so that the generator leaves the call as the op-by-op loop
+        leaves it.
+
+        Every iteration runs through the ``EpisodeProgram`` kept per
+        (B, cap) in ``programs``, the counterpart of the JAX package's
+        ``jax.jit`` of the episode; ``eager=True`` runs the loop op by op,
+        the plan included, to hold the two against each other.  The
+        programs are released when the loop ends."""
         starts, goals, zonos = self._t(starts), self._t(goals), self._t(zonos)
         masks = self._t(masks, torch.bool)
-        B, nf = starts.shape
+        B, cap = masks.shape
+        owner = generator if draws is None else None
         tp, draws = self._setup(B, generator, true_params, draws)
-        lim = _limits(spec, self.dtype, self.device)
-        obstacles = ObstacleSet(zonos, masks)
-        obs_log = ObstacleSet(zonos[:, None], masks[:, None])    # against (B, n_chk, nf)
-        ee_goal = self.goal_type == "end_effector_location"
-        if ee_goal:
-            # `end_effector_location` goals (kinova_world_static.m:53-110): the
-            # goal CONFIG guides the HLP; success is the end effector reaching
-            # that config's workspace position
-            ee_target = ee_pose(spec, goals)[1]
+        if eager or self.sim_cfg.max_iterations < 1:
+            return self._run_batch_eager(starts, goals, zonos, masks, tp, draws)
+        prog, pending = None, None
+        for it in range(self.sim_cfg.max_iterations):
+            state = owner.get_state() if owner is not None else None
+            d = draws(it)
+            prog = self.programs.run((B, cap), lambda: EpisodeProgram(self, B, cap, d.noise is not None),
+                                     d, (starts, goals, zonos, masks, tp) if it == 0 else None)
+            if prog.host_reads:
+                if bool(prog.all_done):
+                    break
+                continue
+            # the flag of the iteration before, read once this one is
+            # launched: this one then found every world done, changed
+            # nothing, and gives its draws back
+            if pending is not None and pending():
+                if state is not None:
+                    owner.set_state(state)
+                break
+            pending = prog.done_after()
+        summary = prog.summary()
+        self.planner.batch_programs.clear()
+        self.programs.clear()
+        return summary
 
-        zeros = torch.zeros((B, nf), dtype=self.dtype, device=self.device)
-        traj = TrajParams(starts, zeros, zeros, zeros,
-                          torch.full((B,), pcfg.duration, dtype=self.dtype, device=self.device))
-        q, qd, k_prev = starts, zeros, zeros
-        false = torch.zeros(B, dtype=torch.bool, device=self.device)
-        flags = {k: false.clone() for k in ("goal_reached", "collision", "torque_violation",
-                                            "joint_limit_violation", "ultimate_bound_violation",
-                                            "stopped")}
-        count = torch.zeros(B, dtype=torch.int32, device=self.device)
-        iters, n_feas, fails, stall = count.clone(), count.clone(), count.clone(), count.clone()
-        done = false.clone()
-
-        for it in range(scfg.max_iterations):
-            if bool(done.all()):
+    def _run_batch_eager(self, starts, goals, zonos, masks, tp, draws) -> EpisodeSummary:
+        """``run_batch`` op by op: the reference the episode program is held to."""
+        ep = self._episode(goals, zonos, masks, tp, self._target(goals))
+        s = _Loop.first(starts, self.plan_cfg.duration)
+        for it in range(self.sim_cfg.max_iterations):
+            if bool(s.done.all()):
                 break
             d = draws(it)
-            # plan from the reference trajectory's state at t_move
-            # (uarmtd_planner.m:91-94 uses reference_state)
-            q0p, qd0p, qdd0p = traj_eval(traj, scfg.t_move, pcfg.duration, self.traj_type,
-                                         pcfg.t_plan)
-            q_des = straight_line_waypoint(spec, q, goals)
-            stalled = stall >= SCAN_STALL
-            if bool(stalled.any()):
-                q_clear = clearance_waypoint(spec, q, goals, obstacles, noise=d.clearance_noise)
-                q_des = torch.where(stalled[:, None], q_clear, q_des)
-            plan, prob = planner.run_program(q0p, qd0p, qdd0p, q_des, zonos, masks, d.k_rand,
-                                             k_prev, full_width=True)
-            k = torch.nan_to_num(plan.k)
-            # k_range is the range the reachable sets were built with: pi/48
-            # for Bezier, the velocity-dependent g_k for ARMTD 'orig'
-            new_traj = TrajParams(q0p, qd0p, qdd0p, prob.k_range * k,
-                                  torch.zeros(B, dtype=self.dtype, device=self.device))
-            cont_traj = traj._replace(t_offset=traj.t_offset + scfg.t_move)
-            traj_i = _select(plan.feasible, new_traj, cont_traj)
-            if self.move_mode == "direct":
-                q_n, qd_n, log = rollout_direct(spec, scfg, q, qd, traj_i, tp, pcfg.duration,
-                                                traj_type=self.traj_type, device=self.device,
-                                                dtype=self.dtype)
-            else:
-                q_n, qd_n, log = rollout(spec, scfg, q, qd, traj_i, tp, pcfg.duration,
-                                         noise=d.noise, traj_type=self.traj_type,
-                                         device=self.device, dtype=self.dtype)
+            q_clear = None
+            if bool((s.stall >= SCAN_STALL).any()):
+                q_clear = self._clearance(ep, s, d.clearance_noise)
+            ref, q_des = self._waypoints(ep, s, q_clear)
+            plan, prob = self.planner.run_program(*ref, q_des, zonos, masks, d.k_rand, s.k_prev,
+                                                  full_width=True, eager=True)
+            s = self._advance(ep, s, ref, plan.k, plan.feasible, prob.k_range, d.noise)
+        return s.summary()
 
-            col = arm_collision_check(spec, log.q, obs_log).any(-1)
-            tor = (log.u.abs() > lim.tlim + 1e-6).flatten(1).any(-1)
-            jl = (((log.q < lim.pos_lb) | (log.q > lim.pos_ub)).flatten(1).any(-1)
-                  | (log.qd.abs() > lim.spd + 1e-6).flatten(1).any(-1))
-            ubv = ((wrap_to_pi(log.q - log.q_ref).abs() > lim.ub_pos + 1e-6).flatten(1).any(-1)
-                   | ((log.qd - log.qd_ref).abs() > lim.ub_vel + 1e-6).flatten(1).any(-1))
-            if ee_goal:
-                reached = goal_check_ee(spec, q_n, ee_target, scfg.goal_radius)
-            else:
-                reached = goal_check(spec, q_n, goals, scfg.goal_radius)
+    # -- one iteration, shared by the op-by-op loop and the episode program --
+    def _target(self, goals):
+        """What success is checked against: the goal configurations, or for
+        ``end_effector_location`` goals (kinova_world_static.m:53-110) the
+        end effector's position at them (the goal CONFIG still guides the
+        HLP)."""
+        return ee_pose(self.spec, goals)[1] if self.goal_type == "end_effector_location" else goals
 
-            fails_n = torch.where(plan.feasible, 0, fails + 1)
-            stopped = fails_n >= scfg.stop_threshold
-            active = ~done
-            for name, arr in (("goal_reached", reached), ("collision", col),
-                              ("torque_violation", tor), ("joint_limit_violation", jl),
-                              ("ultimate_bound_violation", ubv), ("stopped", stopped)):
-                flags[name] = flags[name] | (active & arr)
-            iters = iters + active.int()
-            n_feas = n_feas + (active & plan.feasible).int()
-            moved = torch.linalg.vector_norm(q_n - q, dim=-1) > 5e-3
-            q = torch.where(active[:, None], q_n, q)
-            qd = torch.where(active[:, None], qd_n, qd)
-            traj = _select(active, traj_i, traj)
-            fails = torch.where(active, fails_n, fails)
-            k_prev = torch.where(active[:, None], k, k_prev)
-            stall = torch.where(active & ~moved, stall + 1, 0)
-            done = done | reached | col | stopped
+    def _episode(self, goals, zonos, masks, tp: TrueParams, target) -> _Episode:
+        return _Episode(goals, target, ObstacleSet(zonos, masks),
+                        ObstacleSet(zonos[:, None], masks[:, None]),   # against (B, n_chk, nf)
+                        _limits(self.spec, self.dtype, self.device), tp)
 
-        planner.batch_programs.clear()
-        return EpisodeSummary(**flags, iterations=iters, n_feasible_plans=n_feas)
+    def _clearance(self, ep: _Episode, s: _Loop, noise):
+        return clearance_waypoint(self.spec, s.q, ep.goals, ep.obstacles, noise=noise)
+
+    def _waypoints(self, ep: _Episode, s: _Loop, q_clear=None):
+        """The plan's initial state, the reference trajectory's at t_move
+        (uarmtd_planner.m:91-94 uses reference_state), and its waypoint: the
+        straight line's, or ``q_clear`` where a world has stalled."""
+        pcfg = self.plan_cfg
+        ref = traj_eval(s.traj, self.sim_cfg.t_move, pcfg.duration, self.traj_type, pcfg.t_plan)
+        q_des = straight_line_waypoint(self.spec, s.q, ep.goals)
+        if q_clear is not None:
+            q_des = torch.where((s.stall >= SCAN_STALL)[:, None], q_clear, q_des)
+        return ref, q_des
+
+    def _advance(self, ep: _Episode, s: _Loop, ref, k, feasible, k_range, noise) -> _Loop:
+        """The state after the iteration whose plan is ``k``: the new
+        trajectory where the plan is feasible, else the last one continued;
+        the move; the five checks; then every world not done takes its new
+        state and counts, and a done world keeps its own."""
+        scfg, B = self.sim_cfg, s.q.shape[0]
+        k = torch.nan_to_num(k)
+        # k_range is the range the reachable sets were built with: pi/48
+        # for Bezier, the velocity-dependent g_k for ARMTD 'orig'
+        new_traj = TrajParams(*ref, k_range * k, torch.zeros(B, dtype=self.dtype, device=self.device))
+        cont_traj = s.traj._replace(t_offset=s.traj.t_offset + scfg.t_move)
+        traj = _select(feasible, new_traj, cont_traj)
+        q_n, qd_n, log = self._move(s.q, s.qd, traj, ep.tp, noise)
+        col, tor, jl, ubv = _violations(self.spec, ep.lim, log, ep.obs_log)
+        check = goal_check_ee if self.goal_type == "end_effector_location" else goal_check
+        reached = check(self.spec, q_n, ep.target, scfg.goal_radius)
+        fails = torch.where(feasible, 0, s.fails + 1)
+        stopped = fails >= scfg.stop_threshold
+        moved = torch.linalg.vector_norm(q_n - s.q, dim=-1) > 5e-3
+        active = ~s.done
+        return _Loop(q=torch.where(active[:, None], q_n, s.q),
+                     qd=torch.where(active[:, None], qd_n, s.qd),
+                     traj=_select(active, traj, s.traj),
+                     k_prev=torch.where(active[:, None], k, s.k_prev),
+                     fails=torch.where(active, fails, s.fails),
+                     stall=torch.where(active & ~moved, s.stall + 1, 0),
+                     iters=s.iters + active.int(),
+                     n_feas=s.n_feas + (active & feasible).int(),
+                     done=s.done | reached | col | stopped,
+                     flags=tuple(f | (active & x)
+                                 for f, x in zip(s.flags, (reached, col, tor, jl, ubv, stopped))))
+
+    def _move(self, q, qd, traj: TrajParams, tp: TrueParams, noise):
+        """The move of one iteration in the runner's move mode."""
+        kw = dict(traj_type=self.traj_type, device=self.device, dtype=self.dtype)
+        if self.move_mode == "direct":
+            return rollout_direct(self.spec, self.sim_cfg, q, qd, traj, tp, self.plan_cfg.duration, **kw)
+        return rollout(self.spec, self.sim_cfg, q, qd, traj, tp, self.plan_cfg.duration, noise=noise,
+                       **kw)
+
+    @property
+    def programs(self) -> ProgramCache:
+        """The runner's kept episode steps: ``run_batch``'s episode program
+        per (B, cap) and the battery driver's stages per (B, bucket), each
+        released when its driver returns."""
+        if "_programs" not in self.__dict__:
+            self._programs = ProgramCache(4)
+        return self._programs
+
+
+def _violations(spec: RobotSpec, lim: _Limits, log, obs_log: ObstacleSet):
+    """The episode program's collision, torque, joint-limit and
+    ultimate-bound flags of a move's log, (B,) each."""
+    col = arm_collision_check(spec, log.q, obs_log).any(-1)
+    tor = (log.u.abs() > lim.tlim + 1e-6).flatten(1).any(-1)
+    jl = (((log.q < lim.pos_lb) | (log.q > lim.pos_ub)).flatten(1).any(-1)
+          | (log.qd.abs() > lim.spd + 1e-6).flatten(1).any(-1))
+    ubv = ((wrap_to_pi(log.q - log.q_ref).abs() > lim.ub_pos + 1e-6).flatten(1).any(-1)
+           | ((log.qd - log.qd_ref).abs() > lim.ub_vel + 1e-6).flatten(1).any(-1))
+    return col, tor, jl, ubv
+
+
+class EpisodeProgram:
+    """One iteration of ``EpisodeRunner.run_batch`` for B worlds at obstacle
+    capacity ``cap``, kept in the runner's ``programs`` (the counterpart of
+    the JAX package's compiled episode, `armour_tpu/sim/harness.py:82-85`).
+    The loop's inputs and state live in buffers at fixed addresses: a call
+    given ``start`` copies the episode's inputs in and resets the state; every
+    call copies the iteration's draws in and runs the pre-plan step (the
+    reference state at t_move, the straight-line waypoint, the clearance
+    waypoint where a world has stalled), the plan through the planner's kept
+    program (``ArmourPlanner.run_program``, full width; its plan and k range
+    are copied into the program's buffers) and the post-plan step (the
+    trajectory select, the move, the five checks, the summary and the
+    in-place update of the state).  Each step is a CUDA graph on a card
+    (`utils/graphs.py`).  The arithmetic is the runner's (``_waypoints``,
+    ``_advance``), which the op-by-op loop runs too.
+
+    ``host_reads``: whether the loop reads the stall and done flags on the
+    host; None means on the CPU, where the read costs nothing.  The
+    clearance waypoint is then computed only when a world has stalled, and
+    the loop stops right after the iteration that ends its last world, as
+    the op-by-op loop does.  Without host reads (the card) the pre-plan step
+    computes the clearance waypoint of every world and selects it by
+    ``stall >= SCAN_STALL``, as the JAX package does, and the done flag of an
+    iteration is read after the next one is launched (``done_after``), so
+    the device never waits for the host: that next iteration finds every
+    world done and changes nothing.  Set it False to rehearse the card's
+    order on the CPU.  The CPU's order is kept for one check:
+    `tests/test_torch_harness_scan.py` holds the port to computing the
+    clearance waypoint only at the iteration where a world stalled
+    (``clear_calls == [1]``); one order everywhere waits for that check to
+    be restated (ROADMAP)."""
+
+    host_reads: bool | None = None
+
+    def __init__(self, runner: EpisodeRunner, batch: int, cap: int, noise: bool):
+        runner = weakref.proxy(runner)       # the runner's cache holds the program
+        spec, pcfg, scfg = runner.spec, runner.plan_cfg, runner.sim_cfg
+        dt, dev = runner.dtype, runner.device
+        nf, n = spec.n_factors, spec.n_joints
+        if self.host_reads is None:
+            self.host_reads = dev.type != "cuda"
+        self.runner, self.planner, self.device = runner, runner.planner, dev
+
+        def buf(*shape, dtype=dt):
+            return torch.zeros((batch, *shape), dtype=dtype, device=dev)
+
+        # the episode's inputs, each iteration's draws, the loop's state
+        self.zonos, self.masks, goals = buf(cap, 4, 3), buf(cap, dtype=torch.bool), buf(nf)
+        target = buf(3) if runner.goal_type == "end_effector_location" else goals
+        ep = self.episode = runner._episode(goals, self.zonos, self.masks,
+                                            TrueParams(buf(n), buf(n)), target)
+        self.k_rand = buf(max(pcfg.nlp_num_starts - 2, 1), nf)
+        self.clearance_noise = buf(CLEARANCE_SAMPLES, nf)
+        n_steps = int(round(scfg.t_move / scfg.plant_dt))
+        self.noise = torch.zeros((n_steps, 2, batch, nf), dtype=dt, device=dev) if noise else None
+        self.state = tree_map(torch.clone, _Loop.first(buf(nf), pcfg.duration))
+        self.all_done = torch.zeros((), dtype=torch.bool, device=dev)
+        # what passes between the steps and the plan
+        self.ref, self.q_des, self.q_clear = (buf(nf), buf(nf), buf(nf)), buf(nf), buf(nf)
+        self.plan_k, self.feasible, self.k_range = buf(nf), buf(dtype=torch.bool), None
+        # the done flag's host copies, two in turn (``done_after``)
+        pinned = dev.type == "cuda"
+        self.flag_host = [torch.zeros((), dtype=torch.bool, pin_memory=pinned) for _ in range(2)]
+        self.flag_event = [torch.cuda.Event() for _ in range(2)] if pinned else None
+        self.turn = 0
+
+        def clearance():
+            self.q_clear.copy_(runner._clearance(ep, self.state, self.clearance_noise))
+
+        def waypoint():
+            keep_into((self.ref, self.q_des), runner._waypoints(ep, self.state, self.q_clear))
+
+        def pre_plan():
+            clearance()
+            waypoint()
+
+        def post_plan():
+            s = runner._advance(ep, self.state, self.ref, self.plan_k, self.feasible, self.k_range,
+                                self.noise)
+            keep_into(self.state, s)
+            self.all_done.copy_(s.done.all())
+
+        self.clearance = stepper(clearance, dev, eager=False) if self.host_reads else None
+        self.pre_plan = stepper(waypoint if self.host_reads else pre_plan, dev, eager=False)
+        self.post_plan = stepper(post_plan, dev, eager=False)
+        self.duration = pcfg.duration
+
+    @property
+    def steps(self) -> list:
+        if self.post_plan is None:
+            return []
+        return [s for s in (self.clearance, self.pre_plan, self.post_plan) if s is not None]
+
+    def __call__(self, draws: Draws, start: tuple | None = None) -> "EpisodeProgram":
+        """One iteration with ``draws``; ``start`` (starts, goals, zonos,
+        masks, true params) begins an episode."""
+        if start is not None:
+            self._start(*start)
+        if (draws.noise is None) != (self.noise is None):
+            raise ValueError("the draws must carry measurement noise at every iteration or at none")
+        self.k_rand.copy_(draws.k_rand)
+        self.clearance_noise.copy_(draws.clearance_noise)
+        if self.noise is not None:
+            self.noise.copy_(draws.noise)
+        if self.host_reads and bool((self.state.stall >= SCAN_STALL).any()):
+            self.clearance()
+        self.pre_plan()
+        plan, prob = self.planner.run_program(*self.ref, self.q_des, self.zonos, self.masks,
+                                              self.k_rand, self.state.k_prev, full_width=True)
+        self.plan_k.copy_(plan.k)
+        self.feasible.copy_(plan.feasible)
+        self.k_range = keep_into(self.k_range, prob.k_range)
+        self.post_plan()
+        return self
+
+    def _start(self, starts, goals, zonos, masks, true_params: TrueParams):
+        ep = self.episode
+        keep_into((ep.goals, self.zonos, self.masks, ep.tp), (goals, zonos, masks, true_params))
+        if ep.target is not ep.goals:
+            ep.target.copy_(self.runner._target(ep.goals))
+        keep_into(self.state, _Loop.first(starts, self.duration))
+
+    def done_after(self) -> Callable[[], bool]:
+        """Whether every world is done after the iteration just launched,
+        to be asked later: the flag is copied to the host behind the
+        iteration (into pinned memory, with an event, on a card) and read
+        when asked."""
+        self.turn = 1 - self.turn
+        host = self.flag_host[self.turn]
+        host.copy_(self.all_done, non_blocking=True)
+        if self.flag_event is None:
+            return lambda: bool(host)
+        event = self.flag_event[self.turn]
+        event.record()
+        return lambda: event.synchronize() or bool(host)
+
+    def summary(self) -> EpisodeSummary:
+        return tree_map(torch.clone, self.state.summary())
+
+    def release(self):
+        for step in self.steps:
+            release(step)
+        self.clearance = self.pre_plan = self.post_plan = None
 
 
 def run_batch_stepped(
@@ -338,6 +586,7 @@ def run_batch_stepped(
     hlp: str = "straight",
     trace: list | None = None,
     progress: Callable[[int, EpisodeSummary], None] | None = None,
+    eager: bool = False,
 ) -> EpisodeSummary:
     """The battery driver: B episodes stepped from the host, one replan of
     every active world per iteration.  Semantics match
@@ -372,9 +621,15 @@ def run_batch_stepped(
     device synchronise.
 
     The plan of every iteration runs through the planner's batched programs
-    (``ArmourPlanner.run_program``), kept per (B, bucket) across iterations
-    and released when the driver returns, as ``EpisodeRunner.run_batch``
-    releases its own.
+    (``ArmourPlanner.run_program``), kept per (B, bucket) across iterations,
+    and the device stages around it (the JAX driver's ``ref_state`` with
+    ``waypoints``, ``clearance_waypoints`` and ``roll_and_check``) as
+    ``KeptFunction`` steps per (B, bucket) in the runner's ``programs``; all
+    are released when the driver returns, as ``EpisodeRunner.run_batch``
+    releases its own.  The host guidance, the mesh oracle and the
+    bookkeeping in numpy run on the host between them, as in the JAX driver.
+    ``eager=True`` runs the stages and the plan op by op, to hold the two
+    against each other.
     ``progress(it, summary)`` is called after every iteration with the
     summary so far, so that a run cut short still leaves its record.
     """
@@ -403,7 +658,6 @@ def run_batch_stepped(
     bucket = obstacle_bucket(masks)
     zonos = t(zonos)[:, :bucket]
     masks = masks[:, :bucket]
-    obs_log = ObstacleSet(zonos[:, None], masks[:, None])        # against (B, n_chk, nf)
 
     mesh_oracle = None
     if collision_oracle == "mesh":
@@ -439,10 +693,24 @@ def run_batch_stepped(
             col_np[w] = bool(mesh_oracle.check(Rw[j], pw[j], aabbs[w]).any())
         return col_np
 
-    def roll_and_check(q, qd, traj, noise):
+    def stage(name: str, fn: Callable, *args):
+        """``fn(*args)``: op by op with ``eager``, else kept per (B, bucket)."""
+        if eager:
+            return fn(*args)
+        key = (B, bucket, name, *(x is None for x in args))
+        return runner.programs.run(key, lambda: KeptFunction(fn, dev), *args)
+
+    def reference(traj, q, goals):
+        ref = traj_eval(traj, scfg.t_move, pcfg.duration, traj_type, pcfg.t_plan)
+        return (*ref, straight_line_waypoint(spec, q, goals))
+
+    def clearance(q, goals, zonos, masks, noise):
+        return clearance_waypoint(spec, q, goals, ObstacleSet(zonos, masks), noise=noise)
+
+    def roll_and_check(q, qd, traj, noise, tp, goals, zonos, masks):
         q_n, qd_n, log = rollout(spec, scfg, q, qd, traj, tp, pcfg.duration, noise=noise,
                                  traj_type=traj_type, device=dev, dtype=dtype)
-        col = arm_collision_check(spec, log.q, obs_log).any(-1)
+        col = arm_collision_check(spec, log.q, ObstacleSet(zonos[:, None], masks[:, None])).any(-1)
         # overshoot magnitudes (<= 0 inside the margin): the flags below are
         # the episode program's; the magnitudes say HOW far a violating
         # episode left its envelope
@@ -594,17 +862,16 @@ def run_batch_stepped(
             break
         launches0 = kernels.launch_counts()
         cache0 = planner.batch_programs.stats()
+        stages0 = runner.programs.stats()
         moves0 = fused_rollout.launches
         t0 = time.perf_counter()
         d = draws(it)
-        q0p, qd0p, qdd0p = traj_eval(traj, scfg.t_move, pcfg.duration, traj_type, pcfg.t_plan)
-        q_des = straight_line_waypoint(spec, q, goals)
+        q0p, qd0p, qdd0p, q_des = stage("reference", reference, traj, q, goals)
         n_clear = int((stall >= scfg.stall_clearance).sum())
         if n_clear:
             # stalled worlds explore sampled waypoints instead of driving
             # into the same local minimum every replan
-            q_clear = clearance_waypoint(spec, q, goals, ObstacleSet(zonos, masks),
-                                         noise=d.clearance_noise)
+            q_clear = stage("clearance", clearance, q, goals, zonos, masks, d.clearance_noise)
             q_des = torch.where(torch.as_tensor(stall >= scfg.stall_clearance, device=dev)[:, None],
                                 q_clear, q_des)
         if hlp == "ee_rrt_star" and ee_paths and (stall >= scfg.stall_ee_replan).any():
@@ -690,7 +957,7 @@ def run_batch_stepped(
         # the solve runs at a much smaller bucket (a program kept per bucket)
         marks = {} if trace is not None else None
         plan, probs = planner.run_program(q0p, qd0p, qdd0p, q_des, zonos, masks, d.k_rand, k_prev,
-                                          marks=marks)
+                                          marks=marks, eager=eager)
         feas = plan.feasible.cpu().numpy()
         t3 = time.perf_counter()
 
@@ -701,7 +968,8 @@ def run_batch_stepped(
         traj = _select(plan.feasible, new_traj, cont_traj)
         k_prev = k_new
         (q, qd, col, tor, jl, ubv, reached, log_q,
-         jl_over, ub_over, tor_over) = roll_and_check(q, qd, traj, d.noise)
+         jl_over, ub_over, tor_over) = stage("move_and_check", roll_and_check, q, qd, traj, d.noise,
+                                             tp, goals, zonos, masks)
 
         active = ~done
         for name, arr in (("jl", jl_over), ("ub", ub_over), ("tor", tor_over)):
@@ -762,6 +1030,7 @@ def run_batch_stepped(
             t6 = time.perf_counter()
             launches1 = kernels.launch_counts()
             cache1 = planner.batch_programs.stats()
+            stages1 = runner.programs.stats()
             trace.append({
                 "iteration": it, "active": int(active.sum()),
                 "ref_waypoints_s": t1 - t0, "build_probs_s": marks["built"] - t1,
@@ -778,6 +1047,7 @@ def run_batch_stepped(
                 "guidance_paths": {str(w): {"index": st[1], "length": len(st[0])}
                                    for w, st in rrt_paths.items() if st[0] is not None},
                 **{f"program_{k}": cache1[k] - cache0[k] for k in ("captures", "hits", "misses")},
+                **{f"stage_{k}": stages1[k] - stages0[k] for k in ("captures", "hits", "misses")},
                 "memory_allocated": torch.cuda.memory_allocated(dev) if dev.type == "cuda" else None,
             })
         if verbose:
@@ -787,4 +1057,5 @@ def run_batch_stepped(
             progress(it, summary())
 
     planner.batch_programs.clear()
+    runner.programs.clear()
     return summary()

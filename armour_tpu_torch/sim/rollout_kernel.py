@@ -38,15 +38,17 @@ import functools
 from pathlib import Path
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from armour_tpu_torch.collision import kernels
 from armour_tpu_torch.config import SimConfig
 from armour_tpu_torch.control.ilqr import tvlqr_gain_schedule
-from armour_tpu_torch.device import resolve_device
+from armour_tpu_torch.device import const, resolve_device
 from armour_tpu_torch.dynamics.rnea import link_constants
 from armour_tpu_torch.robots.spec import RobotSpec
 from armour_tpu_torch.sim.agent import CONTROLLERS, RolloutLog, TrajParams, TrueParams, traj_eval
+from armour_tpu_torch.utils import graphs
 
 SOURCE = Path(kernels.__file__).resolve().parents[1] / "csrc" / "rollout.cu"
 
@@ -99,11 +101,36 @@ def check_joint_bound(spec: RobotSpec):
                          f"{spec.name} has {spec.n_joints}")
 
 
+def spec_rows(spec: RobotSpec):
+    """The spec's buffers of the kernel as host arrays: ``spec`` (SPEC_LEN,)
+    float64 and ``ispec`` (ISPEC_LEN,) int32."""
+    check_joint_bound(spec)
+    n, nf = spec.n_joints, spec.n_factors
+    s = np.zeros(SPEC_LEN)
+    s[OFF_FIXED:OFF_TRANS].reshape(MAXJ + 1, 9)[:n + 1] = np.reshape(spec.fixed_rotations(), (n + 1, 9))
+    s[OFF_TRANS:OFF_COM].reshape(MAXJ + 1, 3)[:n + 1] = spec.trans
+    s[OFF_COM:OFF_MASS].reshape(MAXJ, 3)[:n] = spec.com
+    s[OFF_MASS:OFF_MASS + n] = spec.mass
+    s[OFF_INERTIA:OFF_ARMATURE].reshape(MAXJ, 9)[:n] = np.reshape(spec.inertia, (n, 9))
+    s[OFF_ARMATURE:OFF_ARMATURE + n] = spec.armature
+    s[OFF_DAMPING:OFF_DAMPING + n] = spec.damping
+    scalars = (spec.gravity, spec.kr, spec.alpha, spec.v_max, spec.mass_uncertainty,
+               spec.inertia_uncertainty)
+    s[OFF_SCALARS:OFF_SCALARS + len(scalars)] = scalars
+    ispec = np.zeros(ISPEC_LEN, np.int32)
+    ispec[0], ispec[1] = n, nf
+    ispec[2:2 + n] = spec.axes[:n]
+    ispec[2 + MAXJ:2 + MAXJ + nf] = spec.continuous_joints[:nf]
+    return s, ispec
+
+
 def pack(spec: RobotSpec, q, qd, traj: TrajParams, true_params: TrueParams) -> Packed:
     """Lay a rollout's inputs out for the kernel, in the dtype and on the
     device of ``q``.  The true mass and inertia are formed as the plain
-    version forms them (nominal times the scale, in that dtype)."""
-    check_joint_bound(spec)
+    version forms them (nominal times the scale, in that dtype).  The spec's
+    buffers depend on the spec, the dtype and the device alone: they are
+    made once (`device.const`), so a captured step may pack."""
+    s, ispec = spec_rows(spec)
     n, nf = spec.n_joints, spec.n_factors
     dtype, dev = q.dtype, q.device
     nominal = link_constants(spec, q)
@@ -113,23 +140,6 @@ def pack(spec: RobotSpec, q, qd, traj: TrajParams, true_params: TrueParams) -> P
     for d in lead:
         B *= d
 
-    s = torch.zeros(SPEC_LEN, dtype=dtype, device=dev)
-    s[OFF_FIXED:OFF_TRANS].view(MAXJ + 1, 9)[:n + 1] = nominal.fixed.reshape(n + 1, 9)
-    s[OFF_TRANS:OFF_COM].view(MAXJ + 1, 3)[:n + 1] = nominal.trans
-    s[OFF_COM:OFF_MASS].view(MAXJ, 3)[:n] = nominal.com
-    s[OFF_MASS:OFF_MASS + n] = nominal.mass
-    s[OFF_INERTIA:OFF_ARMATURE].view(MAXJ, 9)[:n] = nominal.inertia.reshape(n, 9)
-    s[OFF_ARMATURE:OFF_ARMATURE + n] = nominal.armature
-    s[OFF_DAMPING:OFF_DAMPING + n] = nominal.damping
-    scalars = (spec.gravity, spec.kr, spec.alpha, spec.v_max, spec.mass_uncertainty,
-               spec.inertia_uncertainty)
-    s[OFF_SCALARS:OFF_SCALARS + len(scalars)] = torch.tensor(scalars, dtype=dtype)
-
-    ispec = torch.zeros(ISPEC_LEN, dtype=torch.int32)
-    ispec[0], ispec[1] = n, nf
-    ispec[2:2 + n] = torch.as_tensor(spec.axes, dtype=torch.int32)
-    ispec[2 + MAXJ:2 + MAXJ + nf] = torch.as_tensor(spec.continuous_joints, dtype=torch.int32)
-
     w = torch.zeros(lead + (WORLD_LEN,), dtype=dtype, device=dev)
     for off, x in ((W_Q, q), (W_QD, qd), (W_Q0, traj.q0), (W_QD0, traj.qd0),
                    (W_QDD0, traj.qdd0), (W_K, traj.k_actual)):
@@ -138,7 +148,8 @@ def pack(spec: RobotSpec, q, qd, traj: TrajParams, true_params: TrueParams) -> P
     w[..., W_MASS:W_MASS + n] = nominal.mass * true_params.mass_scale
     inertia = nominal.inertia * true_params.inertia_scale[..., None, None]
     w[..., W_INERTIA:W_INERTIA + 9 * n] = inertia.reshape(inertia.shape[:-3] + (9 * n,))
-    return Packed(s, ispec.to(dev), w.reshape(B, WORLD_LEN).contiguous(), tuple(lead), nf)
+    return Packed(const(s, dtype, dev), const(ispec, torch.int32, dev),
+                  w.reshape(B, WORLD_LEN).contiguous(), tuple(lead), nf)
 
 
 def unpack_spec(packed: Packed, n: int) -> dict:
@@ -356,7 +367,7 @@ def fused_rollout(spec: RobotSpec, sim: SimConfig, q, qd, traj: TrajParams,
         float(sim.t_move), int(traj_type == "orig"), q_end.data_ptr(), qd_end.data_ptr(),
         *(logs[j].data_ptr() for j in range(5)), torch.cuda.current_stream(dev).cuda_stream)
     kernels._raise_on(err, "armour_rollout")
-    t = torch.tensor([i * dt for i in range(0, n_steps, log_every)], dtype=dtype, device=dev)
+    t = const([i * dt for i in range(0, n_steps, log_every)], dtype, dev)
     log = RolloutLog(t, *(logs[j].reshape(lead + (n_log, nf)) for j in range(5)))
     return q_end.reshape(lead + (nf,)), qd_end.reshape(lead + (nf,)), log
 
@@ -370,3 +381,4 @@ def launch_counts() -> dict:
 
 
 reset_launch_counts()
+graphs.COUNTED.append(fused_rollout)    # a captured move counts on every replay

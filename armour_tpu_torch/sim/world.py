@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from armour_tpu_torch.collision.zonotope import ObstacleSet
-from armour_tpu_torch.device import resolve_device
+from armour_tpu_torch.device import const, resolve_device
 from armour_tpu_torch.dynamics.rnea import forward_kinematics
 from armour_tpu_torch.planner.armour import wrap_to_pi
 from armour_tpu_torch.robots.spec import RobotSpec
@@ -36,7 +36,7 @@ def goal_check(spec: RobotSpec, q, goal, goal_radius: float):
     """Configuration-space goal test (`kinova_world_static.m` goal_check):
     every joint within goal_radius, with angdiff on continuous joints."""
     d = q - goal
-    cont = torch.as_tensor(spec.continuous_joints, device=d.device)
+    cont = const(spec.continuous_joints, device=d.device)
     d = torch.where(cont, wrap_to_pi(d), d)
     return torch.all(d.abs() <= goal_radius, dim=-1)
 
@@ -46,7 +46,7 @@ def goal_check_ee(spec: RobotSpec, q, goal_xyz, goal_radius: float):
     `kinova_world_static.m:53-110`): the end effector (the flange offset
     ``spec.trans[n_joints]`` past the last joint) within goal_radius."""
     Rw, pw = forward_kinematics(spec, q)
-    flange = torch.as_tensor(spec.trans[spec.n_joints], dtype=q.dtype, device=q.device)
+    flange = const(spec.trans[spec.n_joints], q.dtype, q.device)
     ee = pw[..., -1, :] + torch.einsum("...ij,j->...i", Rw[..., -1, :, :], flange)
     return torch.linalg.vector_norm(ee - goal_xyz, dim=-1) <= goal_radius
 
@@ -91,8 +91,8 @@ def arm_collision_check(spec: RobotSpec, q: torch.Tensor, obstacles: ObstacleSet
     are treated as AABBs (box_obstacle_zonotope is axis-aligned).
     """
     Rw, pw = forward_kinematics(spec, q)          # (..., L, 3, 3), (..., L, 3)
-    centers_local = torch.as_tensor(spec.link_zono_center, dtype=q.dtype, device=q.device)
-    half = torch.as_tensor(spec.link_zono_gen, dtype=q.dtype, device=q.device)
+    centers_local = const(spec.link_zono_center, q.dtype, q.device)
+    half = const(spec.link_zono_gen, q.dtype, q.device)
     obb_c = torch.einsum("...lij,lj->...li", Rw, centers_local) + pw  # (..., L, 3)
 
     obs_c = obstacles.zonos[..., 0, :]                               # (..., O, 3)

@@ -11,9 +11,10 @@ from one memory pool of the object's own.  The step must keep its state in
 tensors that outlive the object, at fixed addresses (it updates them in
 place), and must not synchronise with the host; a capture that fails raises.
 
-The launch counters of the collision kernels (`collision/kernels.py`)
-count launches that run: a capture adds none, and each replay adds what
-the capture recorded.
+The launch counters of the kernel wrappers in ``COUNTED`` (the collision
+kernels of `collision/kernels.py`, and the rollout kernel, which
+`sim/rollout_kernel.py` adds) count launches that run: a capture adds none,
+and each replay adds what the capture recorded.
 
 ``ProgramCache`` keeps a few programs (objects that own such captures) by
 shape key, least recently used first out, and frees an evicted program's
@@ -34,6 +35,9 @@ from armour_tpu_torch.collision import kernels
 
 
 _SIDE: dict = {}
+
+# the kernel wrappers whose ``launches`` counter a replay adds to
+COUNTED = list(kernels.KERNELS)
 
 
 def _side_stream() -> torch.cuda.Stream:
@@ -88,16 +92,20 @@ class CapturedStep:
             with torch.cuda.use_mem_pool(self.pool):
                 self.step()                  # the real first step, op by op
             t0 = time.perf_counter()
-            before = {k: k.launches for k in kernels.KERNELS}
+            before = {k: k.launches for k in COUNTED}
             graph = torch.cuda.CUDAGraph()
             graph.capture_begin(pool=self.pool.id)
             try:
                 self.step()
-            finally:
                 graph.capture_end()
-            self.launches = {k: k.launches - before[k] for k in kernels.KERNELS}
-            for k in kernels.KERNELS:
-                k.launches = before[k]
+            except BaseException:
+                _end_failed_capture(graph, self.pool)
+                raise
+            finally:
+                captured = {k: k.launches - before[k] for k in COUNTED}
+                for k in COUNTED:
+                    k.launches = before[k]
+            self.launches = captured
             self.capture_ms = CapturedStep.last_capture_ms = (time.perf_counter() - t0) * 1e3
         torch.cuda.current_stream().wait_stream(side)
         self.graph = graph
@@ -111,6 +119,26 @@ class CapturedStep:
         if self.graph is not None:
             self.graph.reset()
         self.graph = self.pool = self.step = None
+
+
+def _end_failed_capture(graph: torch.cuda.CUDAGraph, pool: torch.cuda.MemPool):
+    """Leave a capture that failed (the caller re-raises its error): end
+    the stream's capture if it still runs, and stop the caching allocator
+    routing the side stream's allocations to the capture's pool, which
+    ``capture_end`` leaves undone when the capture was invalidated (a later
+    release of another graph's pool then aborted the process)."""
+    if torch.cuda.is_current_stream_capturing():
+        try:
+            graph.capture_end()
+            return            # a capture still valid ends whole, the routing with it
+        except RuntimeError:
+            pass              # an invalidated one stops capturing, and raises before the routing
+    try:
+        torch._C._cuda_endAllocateToPool(torch.cuda.current_device(), pool.id)
+    except RuntimeError as err:
+        # ``capture_end`` itself failed after it had ended the routing
+        if "not currently recording" not in str(err):
+            raise
 
 
 def stepper(step: Callable[[], None], device: torch.device, eager: bool) -> Callable[[], None]:
@@ -141,6 +169,35 @@ def keep_into(kept, value):
         return tree_map(torch.clone, value)
     tree_map(torch.Tensor.copy_, kept, value)
     return kept
+
+
+class KeptFunction:
+    """``fn(*args)`` of fixed-shape tensors (tuples and NamedTuples of them,
+    or None) kept as one step, a CUDA graph on a card: a call copies its
+    arguments into input buffers at fixed addresses (made by the first
+    call), runs the step and returns the outputs in buffers that the next
+    call overwrites.  A program of a ``ProgramCache``."""
+
+    def __init__(self, fn: Callable, device: torch.device):
+        self.inputs = self.out = None
+
+        def step():
+            self.out = keep_into(self.out, fn(*self.inputs))
+
+        self.step = stepper(step, device, eager=False)
+
+    @property
+    def steps(self) -> list:
+        return [] if self.step is None else [self.step]
+
+    def __call__(self, *args):
+        self.inputs = keep_into(self.inputs, args)
+        self.step()
+        return self.out
+
+    def release(self):
+        release(self.step)
+        self.step = self.inputs = self.out = None
 
 
 def tree_map(fn, *trees):

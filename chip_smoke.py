@@ -43,7 +43,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
               constraints
   6. track    the closed-loop move of the 128 plans of phase 4: robust
               controller, RK4 plant at 5e-4 s, 1,000 steps, all worlds at once,
-              ONE launch of the rollout kernel: ms per move, device idle share
+              ONE launch of the rollout kernel: ms per move, device idle share;
+              then the same move kept as one graph (packing and launch, a
+              KeptFunction as the battery keeps it): equal to the bare move
+              to the bit, one launch per call, ms and idle share
   7. parity   plan() on the card against plan() on the CPU (4 worlds, then
               one world per mode) and a 20-step rollout (the kernel against
               the CPU's plain version), T=32, f64
@@ -70,13 +73,25 @@ Phases (each prints one JSON line; any failure exits non-zero):
 11. battery  run_batch_stepped over the 100 worlds of assets/worlds at
               B=100, T=128, f32, 2 iterations, mesh oracle: one JSON line per
               iteration (wall split, buckets, launches = 65 and one rollout
-              kernel launch, mesh hits), the summary with the mean split;
-              fails on any safety violation.  The main kernel is held
-              against its plain version on the battery's first bank
+              kernel launch, mesh hits), the summary with the mean split,
+              each iteration's roll_and_check_s and the kept stages' captures,
+              hits and misses; fails on any safety violation.  The main
+              kernel is held against its plain version on the battery's
+              first bank
 12. hard     the doorway scene with up-front RRT-connect guidance, 2
               iterations
 13. episode  EpisodeRunner.run_batch on 4 worlds and run_recorded_episode on
-              one (save/load round trip), 1 iteration each
+              one (save/load round trip), 1 iteration each; then run_batch at
+              full width (B=128, T=128, f32, the 8obs worlds with goals
+              0.3-0.6 rad away, 5 iterations) through its kept episode program
+              and with eager=True: every summary field equal to the bit, 65
+              main-kernel launches and one rollout launch per iteration, the
+              per-iteration wall, capture ms, program hits and misses and
+              memory_allocated of each; then the same worlds with each goal
+              at its start (every world ends before max_iterations=4), two
+              calls on one generator, kept and eager=True: summaries equal
+              to the bit, the kept loop one iteration (65 + 1 launches) past
+              the last end, and the generator's state equal after each call
 14. parity   run_batch_stepped on the card against the CPU: 2 worlds, T=32,
               f64, 2 iterations, the same injected draws; every summary field
               equal
@@ -224,19 +239,29 @@ SUMMARY_FIELDS = ("goal_reached", *SAFETY, "stopped", "iterations", "n_feasible_
 SWEEP_RTOL = 1e-2
 
 
-def episode_phases(torch, dev, check_and_time, rows, out_dir, n_worlds=100, T=128, sim_kw=None):
+def episode_phases(torch, dev, check_and_time, rows, out_dir, n_worlds=100, T=128, sim_kw=None,
+                   episode_worlds=128):
     """Phases 11-14, the receding-horizon episode paths: the 100-world battery,
-    the doorway scene, the episode program and the recorded episode, and the
-    battery driver on the card against the CPU.  Every phase resets the
-    launch counts just before it and reads them just after.  ``n_worlds``,
-    ``T`` and ``sim_kw`` (SimConfig overrides) exist to rehearse the phases
-    at a small size on the CPU."""
+    the doorway scene, the episode program (4 worlds, then ``episode_worlds``
+    kept against eager) and the recorded episode, and the battery driver on
+    the card against the CPU.  Every phase resets the launch counts just
+    before it and reads them just after.  ``n_worlds``, ``T``, ``sim_kw``
+    (SimConfig overrides) and ``episode_worlds`` exist to rehearse the
+    phases at a small size on the CPU."""
     from armour_tpu_torch.collision import kernels
     from armour_tpu_torch.collision.zonotope import kernel_layout
     from armour_tpu_torch.config import PlannerConfig, SimConfig
     from armour_tpu_torch.planner.armour import obstacle_bucket
+    from armour_tpu_torch.problems import problem_set
     from armour_tpu_torch.robots.kinova import kinova_gen3_spec
-    from armour_tpu_torch.sim.harness import Draws, EpisodeRunner, TrueParams, run_batch_stepped
+    from armour_tpu_torch.sim import rollout_kernel as rk
+    from armour_tpu_torch.sim.harness import (
+        Draws,
+        EpisodeRunner,
+        TrueParams,
+        generator_draws,
+        run_batch_stepped,
+    )
     from armour_tpu_torch.sim.recording import load_recording, run_recorded_episode
     from armour_tpu_torch.sim.scenarios import hard_scenario, load_world_csv, stack_worlds
     from armour_tpu_torch.utils.summary import summarize_episodes
@@ -308,6 +333,8 @@ def episode_phases(torch, dev, check_and_time, rows, out_dir, n_worlds=100, T=12
           "rollout_launches": sum(tr["rollout_launches"] for tr in trace),
           "program_captures": [tr["program_captures"] for tr in trace],
           "program_hits": [tr["program_hits"] for tr in trace],
+          "roll_and_check_s": [tr["roll_and_check_s"] for tr in trace],
+          **{f"stage_{k}": [tr[f"stage_{k}"] for tr in trace] for k in ("captures", "hits", "misses")},
           "memory_allocated": [tr["memory_allocated"] for tr in trace],
           "split_mean_s": {k: statistics.mean(tr[k] for tr in trace) for k in
                            ("ref_waypoints_s", "build_probs_s", "solve_s", "roll_and_check_s",
@@ -395,6 +422,99 @@ def episode_phases(torch, dev, check_and_time, rows, out_dir, n_worlds=100, T=12
           "recorded": {"world": os.path.basename(files[0]), "iterations": 1, "seconds": rec_s,
                        "launches": counts_r, "feasible": bool(r0.feasible),
                        "saved_arrays": len(z), "log_steps": int(z["q"].shape[0])}})
+
+    # the episode program at full width: the 8obs worlds, goals 0.3-0.6 rad
+    # from each start in every joint (no world reaches its goal in the run),
+    # through the kept episode program and op by op
+    p8 = problem_set(cfg, episode_worlds, n_obs=8, seed=0, device=dev)
+    e_goals = p8.q0 + 0.3 * np.sign(p8.q_des - p8.q0) + 0.3 * (p8.q_des - p8.q0) / cfg.k_range
+    n_it = 5
+    full = {}
+    for eager in (False, True):
+        frun = EpisodeRunner(spec, cfg, SimConfig(max_iterations=n_it, **sim_kw), f32, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        inner = generator_draws(frun.planner, frun.sim_cfg, episode_worlds, gen)
+        stamps, mem = [], []
+
+        def draws(i, inner=inner, stamps=stamps, mem=mem):
+            stamps.append(time.perf_counter())
+            mem.append(torch.cuda.memory_allocated() if torch.device(dev).type == "cuda" else None)
+            return inner(i)
+
+        sync()
+        kernels.reset_launch_counts()
+        rk.reset_launch_counts()
+        t0 = time.perf_counter()
+        s_f = frun.run_batch(p8.q0, e_goals, p8.zonos, p8.masks, gen, draws=draws, eager=eager)
+        sync()
+        t_end = time.perf_counter()
+        launches = {main_name: kernels.launch_counts()[main_name],
+                    "fused_rollout": rk.launch_counts()["fused_rollout"]}
+        assert len(stamps) == n_it, f"episode: {len(stamps)} iterations run"
+        assert launches == {main_name: passes * n_it, "fused_rollout": n_it}, launches
+        iteration_s = np.diff(stamps + [t_end]).tolist()
+        full[eager] = {"summary": s_f, "seconds": t_end - t0, "iteration_s": iteration_s,
+                       "median_iteration_s": statistics.median(iteration_s[1:]),
+                       "launches": launches, "memory_allocated": mem,
+                       "episode_programs": frun.programs.stats(),
+                       "plan_programs": frun.planner.batch_programs.stats()}
+        del frun
+    for name in SUMMARY_FIELDS:
+        a, b = getattr(full[False]["summary"], name), getattr(full[True]["summary"], name)
+        assert torch.equal(a, b), f"episode: {name} kept {a.tolist()} eager {b.tolist()}"
+    s_f = full[False]["summary"]
+    assert s_f.iterations.shape == (episode_worlds,) and int(s_f.iterations.max()) == n_it
+    safe(s_f, "episode program at full width")
+    emit({"phase": "episode", "path": "run_batch_full_width", "worlds": episode_worlds, "T": T,
+          "dtype": "float32", "iterations": n_it, "equal_to_eager": True,
+          **{label: {k: v for k, v in full[eager].items() if k != "summary"}
+             for label, eager in (("kept", False), ("eager", True))},
+          "n_feasible_plans": s_f.n_feasible_plans.sum().item(),
+          "stopped": int(s_f.stopped.sum()), "goal_reached": int(s_f.goal_reached.sum())})
+
+    # the same worlds with each goal at its start, so every world ends
+    # before max_iterations: the kept loop reads the done flag one iteration
+    # late (pinned memory and an event on the card), runs exactly one
+    # iteration after the last world ended, and gives that iteration's
+    # draws back; two calls on one generator, as run_worlds makes them
+    max_it = 4
+    early = {}
+    for eager in (False, True):
+        frun = EpisodeRunner(spec, cfg, SimConfig(max_iterations=max_it, **sim_kw), f32, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        calls = []
+        for _ in range(2):
+            sync()
+            kernels.reset_launch_counts()
+            rk.reset_launch_counts()
+            t0 = time.perf_counter()
+            s_x = frun.run_batch(p8.q0, p8.q0, p8.zonos, p8.masks, gen, eager=eager)
+            sync()
+            calls.append({"summary": s_x, "seconds": time.perf_counter() - t0,
+                          "launches": (kernels.launch_counts()[main_name],
+                                       rk.launch_counts()["fused_rollout"]),
+                          "generator": gen.get_state()})
+        early[eager] = calls
+        del frun
+    ends = []
+    for kept, eager in zip(early[False], early[True]):
+        for name in SUMMARY_FIELDS:
+            a, b = getattr(kept["summary"], name), getattr(eager["summary"], name)
+            assert torch.equal(a, b), f"episode ending early: {name} kept {a.tolist()} eager {b.tolist()}"
+        s_x = eager["summary"]
+        assert bool((s_x.goal_reached | s_x.collision | s_x.stopped).all()), "episode: a world did not end"
+        n = int(s_x.iterations.max())
+        assert n < max_it, f"episode: the last world ended at iteration {n} of {max_it}"
+        assert eager["launches"] == (passes * n, n), eager["launches"]
+        assert kept["launches"] == (passes * (n + 1), n + 1), kept["launches"]
+        assert torch.equal(kept["generator"], eager["generator"]), "episode: the generators differ"
+        safe(s_x, "episode ending early")
+        ends.append(n)
+    emit({"phase": "episode", "path": "run_batch_ends_early", "worlds": episode_worlds,
+          "max_iterations": max_it, "last_world_ended_at": ends, "equal_to_eager": True,
+          "iterations_after_the_last_end": 1, "generator_equal": True,
+          **{label: [{k: c[k] for k in ("seconds", "launches")} for c in early[eager]]
+             for label, eager in (("kept", False), ("eager", True))}})
 
     # ---- 14. the battery driver on the card against the CPU ----
     cfg32 = PlannerConfig(num_time_steps=32)
@@ -1505,7 +1625,7 @@ def main() -> int:
     from armour_tpu_torch.sim import rollout_kernel as rk
     from armour_tpu_torch.sim.agent import TrajParams, TrueParams, rollout
     from armour_tpu_torch.sim.world import arm_collision_check
-    from armour_tpu_torch.utils.graphs import CapturedStep
+    from armour_tpu_torch.utils.graphs import CapturedStep, KeptFunction
 
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -1911,6 +2031,26 @@ def main() -> int:
     assert log.q.shape == (B, int(round(sim.t_move / sim.check_dt)), n), log.q.shape
     assert float(pos_err.max()) <= spec.qe, f"track: position error {float(pos_err.max())} > {spec.qe}"
     assert float(vel_err.max()) <= 2 * spec.ultimate_bound, f"track: velocity error {float(vel_err.max())}"
+    # the same move kept as one graph, the packing and the launch, as the
+    # battery driver's move-and-check stage and the episode program keep it
+    f32 = torch.float32
+    on_dev = [torch.as_tensor(x, dtype=f32, device=dev) for x in (probs8.q0, probs8.qd0)]
+    traj_d = TrajParams(*(torch.as_tensor(x, dtype=f32, device=dev) for x in traj))
+    true_d = TrueParams(*(torch.as_tensor(x, dtype=f32, device=dev) for x in true))
+    kept_move = KeptFunction(lambda q, qd, tr, tp: rollout(spec, sim, q, qd, tr, tp, **track_kw), dev)
+    rk.reset_launch_counts()
+    kept_out = kept_move(*on_dev, traj_d, true_d)                           # warm-up and capture
+    t_kept, _ = wall(torch, lambda: kept_move(*on_dev, traj_d, true_d), 3)
+    kept_launches = rk.launch_counts()["fused_rollout"]
+    assert kept_launches == 4, f"track: {kept_launches} launches in 4 calls of the kept move"
+    for a, b in zip((kept_out[0], kept_out[1], *kept_out[2]), (q_end, qd_end, *log)):
+        assert torch.equal(a, b), "track: the kept move differs from the bare move"
+    with torch.profiler.profile(activities=acts) as prof_k:
+        t_kept_traced, _ = wall(torch, lambda: kept_move(*on_dev, traj_d, true_d), 1)
+    busy_k = sum(e.device_time for e in prof_k.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA) * 1e-6
+    kept_move_capture_ms = kept_move.step.capture_ms
+    kept_move.release()
     n_log = log.q.shape[1]
     obs_log = ObstacleSet(
         torch.as_tensor(probs8.zonos, dtype=torch.float32, device=dev)[:, None].expand(-1, n_log, -1, -1, -1),
@@ -1923,11 +2063,15 @@ def main() -> int:
           "device_kernels_per_move": len(dev_events), "host_tensor_calls_per_move": calls,
           "traced_move": {"wall_s": t_traced, "device_busy_s": busy_s,
                           "device_idle_share": 1.0 - busy_s / t_traced},
+          "kept_move": {"equal_to_bare": True, "launches_per_call": 1, "ms_per_move": t_kept * 1e3,
+                        "capture_ms": kept_move_capture_ms,
+                        "traced": {"wall_s": t_kept_traced, "device_busy_s": busy_k,
+                                   "device_idle_share": 1.0 - busy_k / t_kept_traced}},
           "max_pos_err": float(pos_err.max()), "qe": spec.qe,
           "max_vel_err": float(vel_err.max()), "vel_bound": 2 * spec.ultimate_bound,
           "feasible_worlds": int(feas8.sum()), "collisions_feasible": int(hits[feas8].sum()),
           "collisions_infeasible_k0": int(hits[~feas8].sum())})
-    del log, obs_log, prof, dev_events
+    del log, obs_log, prof, dev_events, prof_k, kept_out
 
     # ---- 7. card against CPU on the same paths ---------------------------
     cfg32 = dataclasses.replace(cfg, num_time_steps=32)

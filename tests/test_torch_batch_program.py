@@ -253,8 +253,9 @@ def test_a_dropped_planner_releases_its_programs():
 
 
 def _op_by_op_run_program(self, q0, qd0, qdd0, q_des, zonos, masks, k_rand=None, k_warm=None,
-                          generator=None, full_width=False, marks=None):
-    """``run_program`` with no program: the eager build and solve."""
+                          generator=None, full_width=False, marks=None, eager=True):
+    """``run_program`` with no program: the eager build and solve, whatever
+    ``eager`` says."""
     if full_width:
         prob = self.build_fixed(self._t(q0), self._t(qd0), self._t(qdd0), self._t(zonos),
                                 self._t(masks, torch.bool))

@@ -1,5 +1,7 @@
 """The CUDA graphs of the solver iteration and of the RK4 step of
-``rollout_plain`` against the same steps run op by op, on the card.
+``rollout_plain``, the kept plan programs and the kept episode steps
+(``EpisodeRunner.run_batch``'s ``EpisodeProgram``, a move captured through
+a ``KeptFunction``) against the same steps run op by op, on the card.
 
 Runs only where a CUDA device is present (marker ``cuda``; elsewhere each
 test skips).  This file imports no JAX, so it runs on a machine without it:
@@ -27,8 +29,10 @@ from armour_tpu_torch.planner.armour import ArmourPlanner
 from armour_tpu_torch.planner.rotatotope import rotatotope_planner
 from armour_tpu_torch.problems import Q_HOME, problem_set
 from armour_tpu_torch.robots.kinova import kinova_gen3_spec
-from armour_tpu_torch.sim.agent import CONTROLLERS, TrajParams, TrueParams, rollout_plain
-from armour_tpu_torch.utils.graphs import CapturedStep
+from armour_tpu_torch.sim import harness
+from armour_tpu_torch.sim import rollout_kernel as rk
+from armour_tpu_torch.sim.agent import CONTROLLERS, TrajParams, TrueParams, rollout, rollout_plain
+from armour_tpu_torch.utils.graphs import CapturedStep, KeptFunction
 
 pytestmark = pytest.mark.cuda
 
@@ -320,6 +324,134 @@ def test_repeated_batched_plans_over_three_buckets_hold_no_memory(card):
     pl.batch_programs.clear()
 
 
+def _episode(dtype, card, max_iterations=3, B=8):
+    """A runner at T=32 and B worlds of 8obs with goals 0.3-0.6 rad from
+    their starts (several iterations to reach), as run_batch takes them."""
+    cfg = dataclasses.replace(CFG, num_time_steps=32)
+    p = problem_set(cfg, B, n_obs=8, seed=0, device=card)
+    goals = p.q0 + 0.3 * np.sign(p.q_des - p.q0) + 0.3 * (p.q_des - p.q0) / cfg.k_range
+    runner = harness.EpisodeRunner(SPEC, cfg, SimConfig(max_iterations=max_iterations), dtype,
+                                   device=card)
+    return runner, (p.q0, goals, p.zonos, p.masks)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_kept_run_batch_equals_eager_on_the_card(card, dtype):
+    """Three iterations of the kept episode (the pre-plan and post-plan
+    graphs around the kept plan program) against ``run_batch(eager=True)``:
+    every summary field to the bit; 65 main-kernel launches and one rollout
+    launch per iteration; both steps captured once."""
+    out, launches = {}, {}
+    for eager in (True, False):
+        runner, worlds = _episode(dtype, card)
+        kernels.reset_launch_counts()
+        rk.reset_launch_counts()
+        out[eager] = runner.run_batch(*worlds, torch.Generator(device=card).manual_seed(1), eager=eager)
+        torch.cuda.synchronize()
+        launches[eager] = (kernels.launch_counts()[MAIN], rk.launch_counts()["fused_rollout"])
+        if not eager:
+            stats = runner.programs.stats()
+            assert (stats["misses"], stats["hits"], stats["captures"]) == (1, 2, 2), stats
+    for name in out[True]._fields:
+        if getattr(out[True], name) is not None:
+            assert _same(getattr(out[False], name), getattr(out[True], name)), name
+    assert int(out[True].iterations.max()) == 3
+    assert launches[False] == launches[True] == (3 * PASSES, 3), launches
+
+
+def test_kept_run_batch_that_ends_early_equals_eager_on_the_card(card):
+    """Every goal at its start, so every world ends before
+    ``max_iterations``: the kept loop reads the done flag one iteration
+    late (pinned memory and an event) and runs exactly one iteration after
+    the last world ended, which changes nothing and gives its draws back.
+    Two calls on one generator, as ``run_worlds`` makes them: each summary
+    to the bit, the generator's state after each call, and the launches
+    (one iteration more than op by op) against ``run_batch(eager=True)``."""
+    max_it = 5
+    out = {}
+    for eager in (True, False):
+        runner, (starts, _, zonos, masks) = _episode(torch.float32, card, max_iterations=max_it)
+        gen = torch.Generator(device=card).manual_seed(2)
+        calls = out[eager] = []
+        for _ in range(2):
+            kernels.reset_launch_counts()
+            rk.reset_launch_counts()
+            s = runner.run_batch(starts, starts, zonos, masks, gen, eager=eager)
+            torch.cuda.synchronize()
+            calls.append((s, (kernels.launch_counts()[MAIN], rk.launch_counts()["fused_rollout"]),
+                          gen.get_state()))
+    for (s_e, n_e, g_e), (s_k, n_k, g_k) in zip(out[True], out[False]):
+        for name in s_e._fields:
+            if getattr(s_e, name) is not None:
+                assert _same(getattr(s_e, name), getattr(s_k, name)), name
+        assert bool((s_e.goal_reached | s_e.collision | s_e.stopped).all())
+        n = int(s_e.iterations.max())
+        assert n < max_it - 1, n
+        assert n_e == (n * PASSES, n) and n_k == ((n + 1) * PASSES, n + 1), (n, n_e, n_k)
+        assert torch.equal(g_e, g_k)
+
+
+def test_captured_move_equals_a_bare_launch_and_counts_each_replay(card):
+    """The battery's move (robust, f32, 1,000 steps, noise) through a
+    ``KeptFunction`` (packing and launch in one graph): every replay equal
+    to a bare ``fused_rollout`` launch to the bit, one launch counted per
+    call, the capture included."""
+    args = _worlds("default")
+    rng = np.random.default_rng(4)
+    sim = SimConfig()
+    n_steps = int(round(sim.t_move / sim.plant_dt))
+
+    def t(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=card)
+
+    traj = TrajParams(t(args[0]), t(args[1]), t(args[2]),
+                      t(rng.uniform(-1, 1, (B, 7)) * CFG.k_range), t(np.zeros(B)))
+    tp = TrueParams(t(rng.uniform(0.97, 1.03, (B, 7))), t(rng.uniform(0.97, 1.03, (B, 7))))
+    noise = t(1e-4 * rng.standard_normal((n_steps, 2, B, 7)))
+
+    def move(q, qd, traj, tp, noise):
+        return rollout(SPEC, sim, q, qd, traj, tp, CFG.duration, noise=noise, device=card,
+                       dtype=torch.float32)
+
+    bare = move(traj.q0, traj.qd0, traj, tp, noise)
+    kept = KeptFunction(move, card)
+    rk.reset_launch_counts()
+    for i in range(4):
+        got = kept(traj.q0, traj.qd0, traj, tp, noise)
+        torch.cuda.synchronize()
+        assert rk.launch_counts()["fused_rollout"] == i + 1
+        assert _same(got[0], bare[0]) and _same(got[1], bare[1]), i
+        for a, b in zip(got[2], bare[2]):
+            assert _same(a, b), i
+    assert kept.step.graph is not None
+    kept.release()
+
+
+def test_repeated_episodes_at_one_key_hold_no_memory(card):
+    """Four episodes of five iterations at one (B, cap): the allocated
+    memory at each iteration's start is level from the second iteration of
+    an episode on, and every episode leaves what the first left."""
+    runner, worlds = _episode(torch.float32, card, max_iterations=5)
+    readings, after = [], []
+    for e in range(4):
+        gen = torch.Generator(device=card).manual_seed(e)
+        inner = harness.generator_draws(runner.planner, runner.sim_cfg, 8, gen)
+        seen = []
+
+        def draws(i, inner=inner, seen=seen):
+            seen.append(torch.cuda.memory_allocated())
+            return inner(i)
+
+        runner.run_batch(*worlds, gen, draws=draws)
+        torch.cuda.synchronize()
+        readings.append(seen)
+        after.append(torch.cuda.memory_allocated())
+    assert all(len(r) == 5 for r in readings), readings
+    for r in readings:
+        assert max(r[1:]) <= min(r[1:]) + (1 << 20), r
+    assert max(after[1:]) <= after[0] + (1 << 20), after
+
+
 def test_captured_step_replays_and_counts_what_runs(card):
     x = torch.zeros(4, device=card)
     step = CapturedStep(lambda: x.add_(1.0))
@@ -330,6 +462,29 @@ def test_captured_step_replays_and_counts_what_runs(card):
     bad = CapturedStep(lambda: float(x.sum()))
     with pytest.raises(RuntimeError):
         bad()
+
+
+def test_a_failed_capture_leaves_the_process_able_to_release_and_capture(card):
+    """A capture invalidated by a host read raises; releasing it and an
+    earlier captured step, emptying the cache and capturing anew then work
+    (the caching allocator was left routing the side stream to the failed
+    capture's pool, and the next pool released aborted the process)."""
+    x = torch.zeros(4, device=card)
+    good = CapturedStep(lambda: x.add_(1.0))
+    good()
+    good()
+    bad = CapturedStep(lambda: float(x.sum()))
+    with pytest.raises(RuntimeError):
+        bad()
+    bad.release()
+    good.release()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    again = CapturedStep(lambda: x.mul_(2.0))
+    again()
+    again()
+    assert float(x.sum()) == 32.0 and again.graph is not None
+    again.release()
 
 
 def test_cached_plan_whose_capture_syncs_raises_and_is_not_kept(card):
@@ -364,3 +519,21 @@ def test_batched_plan_whose_capture_syncs_raises_and_is_not_kept(card):
     with pytest.raises(RuntimeError):
         pl.plan_batch(*_worlds("default", 40, 7))
     assert not pl.batch_programs.entries
+
+
+def test_episode_whose_capture_syncs_raises_and_is_not_kept(card, monkeypatch):
+    """A post-plan step that reads a device value on the host cannot be
+    captured: ``run_batch`` raises (no fallback to the op-by-op loop) and
+    keeps no episode program."""
+    runner, worlds = _episode(torch.float32, card)
+    checks = harness._violations
+
+    def syncing(*args):
+        out = checks(*args)
+        float(out[0].sum())
+        return out
+
+    monkeypatch.setattr(harness, "_violations", syncing)
+    with pytest.raises(RuntimeError):
+        runner.run_batch(*worlds)
+    assert not runner.programs.entries
