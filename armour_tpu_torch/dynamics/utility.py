@@ -9,7 +9,7 @@ primitives of ``dynamics/rnea.py`` and takes arbitrary leading batch dims.
 from __future__ import annotations
 
 import torch
-from torch.func import jacfwd
+from torch.func import jvp, vmap
 
 from armour_tpu_torch.device import const
 from armour_tpu_torch.dynamics.rnea import (
@@ -30,15 +30,25 @@ def ee_pose(spec: RobotSpec, q):
     return R_ee, p_ee
 
 
+def ee_position_jacobian(spec: RobotSpec, q):
+    """Jacobian of the end-effector position, (..., 3, n_factors): one
+    forward-mode tangent per joint, pushed through every row at once (each
+    row's position depends on its own q only), as ``jax.jacfwd`` of one
+    row pushes n_factors tangents.  No row meets another, so a row's result
+    does not depend on the rest of the batch."""
+    nf = spec.n_factors
+    eye = torch.eye(nf, dtype=q.dtype, device=q.device)
+    tangents = eye.reshape((nf,) + (1,) * (q.ndim - 1) + (nf,)).expand((nf,) + q.shape)
+    Jv = vmap(lambda v: jvp(lambda qq: ee_pose(spec, qq)[1], (q,), (v,))[1])(tangents)
+    return Jv.movedim(0, -1)                                        # (nf, ..., 3) -> (..., 3, nf)
+
+
 def ee_jacobian(spec: RobotSpec, q):
     """Geometric Jacobian of the end-effector position+orientation:
     (..., 6, n_factors), rows = [v; w] (JacobianSpace equivalent), via
     forward-mode autodiff of FK + the rotation-axis stack."""
     nf = spec.n_factors
-    flat = q.reshape(-1, nf)
-    # sum over the batch: each row's position depends on its own q only
-    Jv = jacfwd(lambda qq: ee_pose(spec, qq)[1].sum(0))(flat)      # (3, N, nf)
-    Jv = Jv.movedim(1, 0).reshape(q.shape[:-1] + (3, nf))
+    Jv = ee_position_jacobian(spec, q)
     # angular part: world axes of each joint
     Rw, _ = forward_kinematics(spec, q)
     cols = []

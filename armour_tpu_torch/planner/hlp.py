@@ -18,11 +18,17 @@ Port of `armour_tpu/planner/hlp.py`, the rebuild of
   positions with buffered point-in-box edge checks, mapped back to
   configuration waypoints by damped-least-squares IK seeded from
   0.5 (q_cur + q_goal) with global-goal fallback
-  (`arm_end_effector_RRT_star_HLP.m:1-145`).  Their end-effector and IK
-  evaluations run on CPU float64 tensors: the host loop never touches the
-  card.
+  (`arm_end_effector_RRT_star_HLP.m:1-145`).  The RRT*'s end-effector
+  positions are CPU float64 tensors; the IK of each waypoint is a kept
+  program (B = 1, float64) on the caller's device.
 - ``ManualWaypointHLP`` and ``optimization_waypoint``
-  (`robot_arm_optimization_HLP.m:102-140`, on ``planner/nlp.py``).
+  (`robot_arm_optimization_HLP.m:102-140`, on ``planner/nlp.py``; its
+  solve is a kept program).
+
+Kept programs (``kept``, in the module's ``PROGRAMS``): the counterparts of
+the JAX package's compiled IK scan and its ``jax.jit`` of the optimization
+waypoint's solve, one ``KeptFunction`` per shape, dtype and device, a CUDA
+graph on a card and op by op through the same buffers on the CPU.
 
 The numpy planners are copied from the JAX package line for line, so the
 same seed gives the same path.  The samples of ``clearance_waypoint`` come
@@ -41,11 +47,31 @@ import torch
 from armour_tpu_torch.collision.zonotope import ObstacleSet
 from armour_tpu_torch.device import const, resolve_device, to_numpy
 from armour_tpu_torch.dynamics.rnea import forward_kinematics
-from armour_tpu_torch.dynamics.utility import ee_jacobian, ee_pose
+from armour_tpu_torch.dynamics.utility import ee_pose, ee_position_jacobian
+from armour_tpu_torch.ops.linalg import spd_solve_small
 from armour_tpu_torch.planner.armour import wrap_to_pi
 from armour_tpu_torch.planner.nlp import solve_box_alm
 from armour_tpu_torch.robots.spec import RobotSpec
 from armour_tpu_torch.sim.world import arm_collision_check
+from armour_tpu_torch.utils.graphs import KeptFunction, ProgramCache
+
+# the kept programs of the guidance's device work: the configuration
+# waypoints' IK and the optimization waypoint's solve, per key (``kept``)
+PROGRAMS = ProgramCache(8)
+
+
+def kept(key: tuple, fn, *args, eager: bool = False):
+    """``fn(*args)`` of tensors on one device: op by op with ``eager``, else
+    kept in ``PROGRAMS`` as one step per ``key`` and the arguments' shapes,
+    dtypes and device (a CUDA graph on a card, replayed on every later
+    call; op by op through the same buffers on the CPU).  ``key`` names
+    what else ``fn`` reads: a program keeps the ``fn`` of its first call.
+    The outputs are the program's buffers, which its next call overwrites."""
+    if eager:
+        return fn(*args)
+    dev = args[0].device
+    full = (*key, str(dev), *((tuple(x.shape), x.dtype) for x in args))
+    return PROGRAMS.run(full, lambda: KeptFunction(fn, dev), *args)
 
 
 def _joint_box(spec: RobotSpec):
@@ -424,18 +450,23 @@ def ik_to_position(
     HLP's `agent_info.inverse_kinematics` role,
     `arm_end_effector_RRT_star_HLP.m:70-80`), batched over the leading dims
     of target_xyz (..., 3) and q_seed (..., nf); runs where q_seed lies.
-    Returns (q (..., nf), ok (...,))."""
+    Returns (q (..., nf), ok (...,)).
+
+    Capturable: no host read, no tensor made from host data after the
+    first call, and no library solve (``J J^T + damping I`` is SPD, solved
+    by ``spd_solve_small``, where the JAX package solves by LU).  No row
+    meets another, so padding rows change no real row's bits."""
     q = torch.as_tensor(q_seed)
     dtype, dev = q.dtype, q.device
-    lb, ub = (torch.as_tensor(x, dtype=dtype, device=dev) for x in _joint_box(spec))
+    lb, ub = (const(x, dtype, dev) for x in _joint_box(spec))
     target = torch.as_tensor(target_xyz, dtype=dtype, device=dev)
-    eye = torch.eye(3, dtype=dtype, device=dev)
+    ridge = const(damping * np.eye(3), dtype, dev)
     for _ in range(iters):
         _, p = ee_pose(spec, q)
-        J = ee_jacobian(spec, q)[..., :3, :]                  # position rows (..., 3, nf)
+        J = ee_position_jacobian(spec, q)                     # (..., 3, nf)
         e = target - p
-        JJt = J @ J.transpose(-1, -2) + damping * eye
-        dq = (J.transpose(-1, -2) @ torch.linalg.solve(JJt, e[..., None]))[..., 0]
+        JJt = J @ J.transpose(-1, -2) + ridge
+        dq = (J.transpose(-1, -2) @ spd_solve_small(JJt, e)[..., None])[..., 0]
         q = torch.clamp(q + dq, lb, ub)
     _, p = ee_pose(spec, q)
     ok = torch.linalg.vector_norm(target - p, dim=-1) <= tol
@@ -553,23 +584,37 @@ def ee_rrt_star_config_waypoints(
     goal_cfg: np.ndarray,
     obstacles: ObstacleSet,
     seed: int = 0,
+    device=None,
+    eager: bool = False,
     **rrt_kwargs,
 ) -> np.ndarray | None:
     """EE RRT* path mapped to CONFIGURATION waypoints: each workspace
     waypoint goes through damped-least-squares IK seeded from
     0.5 (q_cur + q_goal); IK failure falls back to the global goal config
-    (`arm_end_effector_RRT_star_HLP.m:60-86` get_waypoint)."""
+    (`arm_end_effector_RRT_star_HLP.m:60-86` get_waypoint).
+
+    Each waypoint's IK is one replay of a program kept on ``device`` (one
+    row, float64; the JAX package's compiled IK scan): the waypoints depend
+    on each other through the seed.  ``eager=True`` runs it op by op."""
+    dev = resolve_device(device)
     path = ee_rrt_star_waypoints(spec, q_start, goal_cfg, obstacles,
                                  seed=seed, **rrt_kwargs)
     if path is None:
         return None
     goal_cfg = np.asarray(goal_cfg, float)
+
+    def ik(target, seed_q):
+        return ik_to_position(spec, target, seed_q)
+
+    def row(x):
+        return torch.as_tensor(np.asarray(x, float)[None], dtype=torch.float64, device=dev)
+
     out = []
     q_cur = np.asarray(q_start, float)
     for z in path[1:]:
-        seed_q = torch.as_tensor(0.5 * (q_cur + goal_cfg), dtype=torch.float64)
-        q, ok = ik_to_position(spec, z, seed_q)
-        q = q.numpy() if bool(ok) else goal_cfg
+        q, ok = kept(("ik", id(spec)), ik, row(z), row(0.5 * (q_cur + goal_cfg)), eager=eager)
+        # a copy: the program's next call overwrites its output buffers
+        q = to_numpy(q[0]).astype(float) if bool(ok[0]) else goal_cfg
         out.append(q)
         q_cur = q
     out.append(goal_cfg)
@@ -675,6 +720,7 @@ def optimization_waypoint(
     inner_iters: int = 10,
     device=None,
     dtype: torch.dtype = torch.float64,
+    eager: bool = False,
 ):
     """ONE intermediate waypoint configuration found by a small NLP
     (`robot_arm_optimization_HLP.m:102-140`): minimize the summed squared
@@ -683,6 +729,8 @@ def optimization_waypoint(
     AABB (`dist_point_to_box` role) and inside the joint position limits.
     The reference calls fmincon; here the same 7-variable problem goes to
     ``planner/nlp.py::solve_box_alm`` with the box mapped onto [-1, 1]^n.
+    The solve is a program kept per obstacle count, dtype and device (the
+    JAX package's ``jax.jit`` of it); ``eager=True`` runs it op by op.
 
     Returns ``(waypoint (n,) numpy, ok)``; ``ok`` False mirrors the
     reference's exitflag <= 0 path (the caller falls back to the goal).
@@ -698,28 +746,34 @@ def optimization_waypoint(
 
     center, half = t(0.5 * (lb + ub)), t(0.5 * (ub - lb))
     zonos = t(to_numpy(obstacles.zonos))
-    obs_c = zonos[:, 0]
-    obs_h = zonos[:, 1:].abs().sum(1)
     mask = torch.as_tensor(to_numpy(obstacles.mask), device=dev)
     ee_s = ee_pose(spec, t(q_start))[1]
     ee_g = ee_pose(spec, t(q_goal))[1]
-
-    def x_of(k):
-        return center + half * k
-
-    def f_fn(k):
-        p = ee_pose(spec, x_of(k))[1]
-        return torch.sum((p - ee_g) ** 2, -1) + torch.sum((p - ee_s) ** 2, -1)
-
-    def c_fn(k):
-        _, pw = forward_kinematics(spec, x_of(k))                   # (..., n_joints, 3)
-        d = torch.clamp((pw[..., :, None, :] - obs_c).abs() - obs_h, min=0.0)
-        dist = torch.sqrt(torch.sum(d * d, dim=-1) + 1e-12)          # (..., n_joints, O)
-        return torch.where(mask, buffer_dist - dist, -1.0).flatten(-2)
-
     k0 = torch.clamp((t(0.5 * (q_start + q_goal)) - center) / half, -1.0, 1.0)
-    res = solve_box_alm(f_fn, c_fn, k0, outer_iters=outer_iters, inner_iters=inner_iters)
+
+    def solve(k0, center, half, ee_s, ee_g, zonos, mask):
+        obs_c = zonos[:, 0]
+        obs_h = zonos[:, 1:].abs().sum(1)
+
+        def x_of(k):
+            return center + half * k
+
+        def f_fn(k):
+            p = ee_pose(spec, x_of(k))[1]
+            return torch.sum((p - ee_g) ** 2, -1) + torch.sum((p - ee_s) ** 2, -1)
+
+        def c_fn(k):
+            _, pw = forward_kinematics(spec, x_of(k))                   # (..., n_joints, 3)
+            d = torch.clamp((pw[..., :, None, :] - obs_c).abs() - obs_h, min=0.0)
+            dist = torch.sqrt(torch.sum(d * d, dim=-1) + 1e-12)          # (..., n_joints, O)
+            return torch.where(mask, buffer_dist - dist, -1.0).flatten(-2)
+
+        return solve_box_alm(f_fn, c_fn, k0, outer_iters=outer_iters, inner_iters=inner_iters)
+
+    res = kept(("optimization_waypoint", id(spec), buffer_dist, outer_iters, inner_iters), solve,
+               k0, center, half, ee_s, ee_g, zonos, mask, eager=eager)
+    # read after the solve, as the JAX package reads them after its jitted call
     found = bool(res.found_feas)
     k = res.k_feas if found else res.k
     ok = found or bool(res.max_violation <= 1e-6)
-    return x_of(k).cpu().numpy().astype(float), ok
+    return (center + half * k).cpu().numpy().astype(float), ok

@@ -35,8 +35,10 @@ end: a late slice of a run, where the stalled worlds' guidance runs.  The
 line then holds each iteration's whole split (the iterations before N run
 unprofiled) and ``host_profile``: the cumulative seconds of the host
 guidance phases inside the profiled slice (RRT-connect, RRT*, EE RRT*, IK,
-the clearance waypoints, the mesh oracle); the build, the solve and the move
-are in each iteration's split.
+the clearance waypoints, the mesh oracle, and the battery's workspace-path
+waypoints whole, ``ee_waypoints``: where the IK is a kept program, ``ik``
+counts only its op-by-op runs); the build, the solve and the move are in
+each iteration's split.
 """
 
 from __future__ import annotations
@@ -53,7 +55,8 @@ import time
 SPLIT = ("ref_waypoints_s", "build_probs_s", "solve_s", "roll_and_check_s", "mesh_refine_s",
          "host_s", "wall_s")
 PROGRAMS = ("program_captures", "program_hits", "program_misses", "stage_captures", "stage_hits",
-            "stage_misses", "memory_allocated", "bucket_culled")
+            "stage_misses", "stage_evictions", "stage_hits_by_name", "memory_allocated",
+            "bucket_culled", "ee_worlds", "mesh_flagged")
 # the host phases of a battery iteration: (module file, function) -> name.
 # The build, the solve and the move are the trace's split: on the card
 # cProfile recorded no entry for the planner's solve or the ALM loop (their
@@ -66,6 +69,9 @@ PHASES = {
     ("hlp.py", "ik_to_position"): "ik",
     ("hlp.py", "clearance_waypoint"): "clearance_waypoint",
     ("mesh_oracle.py", "check"): "mesh_oracle",
+    # the battery driver's workspace-path waypoints: the EE positions, the
+    # host lookahead and the IK, kept or not
+    ("harness.py", "_ee_waypoints"): "ee_waypoints",
 }
 
 

@@ -14,6 +14,9 @@ A battery too long for one process's time runs as disjoint ``--worlds``
 subsets side by side, each with its own ``--out``; ``--join A.json B.json
 --out all.json`` then writes the one record of the whole battery.  Files of
 named records (``run_armtd_comparison``'s halves) join name by name.
+``--trace FILE`` writes each iteration's trace of the battery driver
+(``run_batch_stepped``'s: the wall split, the kept programs' and stages'
+counts, the card's allocated memory after the iteration) beside it.
 """
 
 from __future__ import annotations
@@ -125,6 +128,9 @@ def main(argv=None):
     ap.add_argument("--stop-rescue", type=int, default=0,
                     help="SimConfig.stop_rescue_attempts (0 = the reference stop protocol)")
     ap.add_argument("--out", default="", help="write the JSON summary here")
+    ap.add_argument("--trace", default="",
+                    help="write each iteration's trace of the stepped driver here (JSON: wall "
+                         "split, kept programs' and stages' counts, allocated card memory)")
     ap.add_argument("--progress-every", type=int, default=0,
                     help="also write --out every N iterations, marked complete=false, so that a "
                          "run cut short leaves its record (0 = only at the end)")
@@ -180,7 +186,13 @@ def main(argv=None):
 
     B = args.batch or len(worlds)
     outs = []
+    trace = [] if args.trace else None
     t0 = time.perf_counter()
+
+    def write_trace():
+        if trace is not None:
+            with open(args.trace, "w") as f:
+                json.dump(trace, f)
 
     def progress(it, s):
         if args.out and args.progress_every and (it + 1) % args.progress_every == 0:
@@ -188,18 +200,20 @@ def main(argv=None):
                      iterations_run=it + 1)
             with open(args.out, "w") as f:
                 json.dump(d, f, indent=2)
+            write_trace()
 
     for i in range(0, len(worlds), B):
         sl = slice(i, min(i + B, len(worlds)))
         if args.driver == "stepped":
             s = run_batch_stepped(runner, starts[sl], goals[sl], zonos[sl], masks[sl], gen,
                                   verbose=True, collision_oracle=args.collision_oracle,
-                                  hlp=args.hlp, progress=progress)
+                                  hlp=args.hlp, trace=trace, progress=progress)
         else:
             s = runner.run_batch(starts[sl], goals[sl], zonos[sl], masks[sl], gen)
         outs.append(s)
         print(f"  batch {i // B}: {int(s.goal_reached.sum())} goals reached")
     wall = time.perf_counter() - t0
+    write_trace()
 
     d = record(outs, wall)
     print(format_summary(d))

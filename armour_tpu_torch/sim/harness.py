@@ -71,6 +71,9 @@ from armour_tpu_torch.utils.graphs import (KeptFunction, ProgramCache, keep_into
 
 CLEARANCE_SAMPLES = 32   # clearance_waypoint's n_samples
 SCAN_STALL = 3           # the episode program's clearance threshold (a constant there)
+# the battery driver's kept stages of fixed shape (its FK stage is kept per
+# row bucket besides, ``fk_rows``)
+STAGES = ("reference", "clearance", "ee", "ik", "move_and_check")
 FLAGS = ("goal_reached", "collision", "torque_violation", "joint_limit_violation",
          "ultimate_bound_violation", "stopped")
 
@@ -152,6 +155,21 @@ def _host(x) -> np.ndarray:
     """A float64 numpy COPY of a tensor (a CPU float64 tensor's ``numpy()``
     would share its memory, and the host loop writes into these arrays)."""
     return to_numpy(x).astype(np.float64)
+
+
+def fk_rows(n: int, cap: int) -> int:
+    """The rows of the kept FK stage that takes ``n`` flagged windows: the
+    least power of two >= n, at most ``cap`` (the batch), so that a battery
+    keeps at most ceil(log2 cap) + 1 of them."""
+    return min(1 << (n - 1).bit_length(), cap)
+
+
+def windows_fk(spec: RobotSpec, log_q: torch.Tensor, rows: torch.Tensor):
+    """World-frame (R_w, p_w) of every logged configuration of the windows
+    ``log_q[rows]`` ((B, n_chk, nf) and (F,)): ((F * n_chk, n, 3, 3),
+    (F * n_chk, n, 3)), window by window.  No row meets another, so repeated
+    rows change no other row's bits."""
+    return forward_kinematics(spec, log_q[rows].flatten(0, 1))
 
 
 def _select(cond, a: TrajParams, b: TrajParams) -> TrajParams:
@@ -615,10 +633,12 @@ def run_batch_stepped(
 
     ``generator``, ``true_params``, ``draws``: as in `EpisodeRunner.run_batch`.
     ``trace``: a list that receives one dict per iteration (wall split,
-    buckets, feasible count, kernel launches, flagged and confirmed mesh
-    hits, the planner's program captures, hits and misses, and the card's
-    allocated bytes after the iteration); the phases are then timed to a
-    device synchronise.
+    buckets, feasible count, kernel launches, the worlds that follow a
+    workspace path and the seconds of their waypoints (inside
+    ``ref_waypoints_s``), flagged and confirmed mesh hits, the planner's program
+    captures, hits and misses, the kept stages' captures, hits (also by
+    stage), misses and evictions, and the card's allocated bytes after the
+    iteration); the phases are then timed to a device synchronise.
 
     The plan of every iteration runs through the planner's batched programs
     (``ArmourPlanner.run_program``), kept per (B, bucket) across iterations,
@@ -628,6 +648,13 @@ def run_batch_stepped(
     are released when the driver returns, as ``EpisodeRunner.run_batch``
     releases its own.  The host guidance, the mesh oracle and the
     bookkeeping in numpy run on the host between them, as in the JAX driver.
+    The JAX driver's compiled helpers are kept stages too: the end-effector
+    positions and the IK of the workspace-path waypoints (``ee``, ``ik``; the
+    IK at all B rows, a row without a path asking for its own end-effector
+    position) and the FK of the mesh oracle's flagged windows (``fk``, per
+    row bucket ``fk_rows``; padded rows dropped).  The runner's cache is sized
+    to hold every stage the driver can run (``STAGES`` and the FK buckets), so
+    that none is evicted and captured again.
     ``eager=True`` runs the stages and the plan op by op, to hold the two
     against each other.
     ``progress(it, summary)`` is called after every iteration with the
@@ -659,6 +686,12 @@ def run_batch_stepped(
     zonos = t(zonos)[:, :bucket]
     masks = masks[:, :bucket]
 
+    # room for every kept stage of this batch: the fixed ones and the FK's
+    # row buckets 1, 2, 4, ..., B
+    programs = runner.programs
+    programs.capacity = max(programs.capacity, len(STAGES) + (B - 1).bit_length() + 1)
+    stage_hits: dict = {}
+
     mesh_oracle = None
     if collision_oracle == "mesh":
         from armour_tpu_torch.collision.mesh_oracle import oracle_for_spec
@@ -676,16 +709,21 @@ def run_batch_stepped(
         if trace is not None and dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
+    def fk(log_q, rows):
+        return windows_fk(spec, log_q, rows)
+
     def _mesh_refine(col_np, active, log_q):
         """Replace conservative box hits with the exact mesh verdict."""
         flagged = np.nonzero(col_np & active)[0]
         if flagged.size == 0:
             return col_np
-        qf = log_q[torch.as_tensor(flagged, device=dev)]            # (F, n_chk, nf)
-        F, n_chk = qf.shape[:2]
-        Rw, pw = forward_kinematics(spec, qf.reshape(-1, nf))
-        Rw = _host(Rw).reshape(F, n_chk, spec.n_joints, 3, 3)
-        pw = _host(pw).reshape(F, n_chk, spec.n_joints, 3)
+        F, n_chk = flagged.size, log_q.shape[1]
+        # the flagged windows repeated up to their row bucket; the repeats'
+        # results are dropped
+        rows = np.resize(flagged, fk_rows(F, B))
+        Rw, pw = stage("fk", fk, log_q, torch.as_tensor(rows, device=dev))
+        Rw = _host(Rw[:F * n_chk]).reshape(F, n_chk, spec.n_joints, 3, 3)
+        pw = _host(pw[:F * n_chk]).reshape(F, n_chk, spec.n_joints, 3)
         for j, w in enumerate(flagged):
             if aabbs[w].shape[0] == 0:
                 col_np[w] = False
@@ -694,11 +732,14 @@ def run_batch_stepped(
         return col_np
 
     def stage(name: str, fn: Callable, *args):
-        """``fn(*args)``: op by op with ``eager``, else kept per (B, bucket)."""
+        """``fn(*args)``: op by op with ``eager``, else kept per (B, bucket)
+        and the arguments' shapes; counts the hits by name for the trace."""
         if eager:
             return fn(*args)
-        key = (B, bucket, name, *(x is None for x in args))
-        return runner.programs.run(key, lambda: KeptFunction(fn, dev), *args)
+        key = (B, bucket, name,
+               *(tuple(x.shape) if isinstance(x, torch.Tensor) else x is None for x in args))
+        stage_hits[name] = stage_hits.get(name, 0) + (key in programs.entries)
+        return programs.run(key, lambda: KeptFunction(fn, dev), *args)
 
     def reference(traj, q, goals):
         ref = traj_eval(traj, scfg.t_move, pcfg.duration, traj_type, pcfg.t_plan)
@@ -802,31 +843,38 @@ def run_batch_stepped(
             if verbose:
                 print(f"  world {w}: config RRT path {0 if path is None else len(path)} wps")
 
-    def _ee_waypoints(q, q_des):
-        """Adaptive EE-path waypoints for worlds with a workspace path."""
-        ws = [w for w in ee_paths if not done[w]]
-        if not ws:
-            return q_des
-        ee_cur = _host(ee_pose(spec, q)[1])       # (B, 3)
-        targets = np.zeros((len(ws), 3))
-        for i, w in enumerate(ws):
+    def ee_position(q):
+        return ee_pose(spec, q)[1]
+
+    def ik(targets, seeds):
+        return ik_to_position(spec, targets, seeds)
+
+    def _ee_waypoints(q, q_des, ws):
+        """Adaptive EE-path waypoints for the worlds ``ws`` with a workspace
+        path."""
+        ee_cur = _host(stage("ee", ee_position, q))                 # (B, 3)
+        # the IK runs at all B rows; a row without a path asks for its own
+        # end-effector position from its own q, and its result is dropped
+        q_np = _host(q)
+        targets, seeds = ee_cur.copy(), q_np.copy()
+        for w in ws:
             pts = ee_paths[w]
             j = int(np.argmin(np.linalg.norm(pts - ee_cur[w], axis=-1)))
             seg = np.linalg.norm(np.diff(pts[j:], axis=0), axis=-1)
             s = np.concatenate([[0.0], np.cumsum(seg)])
             adv = int(np.searchsorted(s, 0.1))                     # 0.1 m lookahead
-            targets[i] = pts[min(j + adv, len(pts) - 1)]
-        seeds = 0.5 * (_host(q)[ws] + goals_np[ws])
-        q_wp, ok = ik_to_position(spec, t(targets), t(seeds))
+            targets[w] = pts[min(j + adv, len(pts) - 1)]
+        seeds[ws] = 0.5 * (q_np[ws] + goals_np[ws])
+        q_wp, ok = stage("ik", ik, t(targets), t(seeds))
         q_wp = _host(q_wp)
         ok = ok.cpu().numpy()
         q_des_np = _host(q_des)
-        for i, w in enumerate(ws):
+        for w in ws:
             # IK failure falls back to the global goal configuration
             # (arm_end_effector_RRT_star_HLP.m:77-80); near the path end the
             # goal config is the better waypoint too
-            at_end = np.linalg.norm(ee_paths[w][-1] - targets[i]) < 1e-9
-            q_des_np[w] = goals_np[w] if (not ok[i] or at_end) else q_wp[i]
+            at_end = np.linalg.norm(ee_paths[w][-1] - targets[w]) < 1e-9
+            q_des_np[w] = goals_np[w] if (not ok[w] or at_end) else q_wp[w]
         return t(q_des_np)
 
     zeros = torch.zeros((B, nf), dtype=dtype, device=dev)
@@ -862,8 +910,9 @@ def run_batch_stepped(
             break
         launches0 = kernels.launch_counts()
         cache0 = planner.batch_programs.stats()
-        stages0 = runner.programs.stats()
+        stages0 = programs.stats()
         moves0 = fused_rollout.launches
+        stage_hits.clear()
         t0 = time.perf_counter()
         d = draws(it)
         q0p, qd0p, qdd0p, q_des = stage("reference", reference, traj, q, goals)
@@ -891,8 +940,11 @@ def run_batch_stepped(
                 best_dist[w] = np.inf
                 if verbose:
                     print(f"  world {w}: EE path re-planned (retry {retry})")
-        if ee_paths:
-            q_des = _ee_waypoints(q, q_des)
+        t_ee = time.perf_counter()
+        ws = [w for w in ee_paths if not done[w]]
+        if ws:
+            q_des = _ee_waypoints(q, q_des, ws)
+        ee_s = time.perf_counter() - t_ee
         if (stall >= scfg.stall_guidance).any():
             # stage-2 escalation: worlds stalled despite clearance sampling
             # get a host-side guidance path (RRT-connect, then RRT*, then
@@ -927,7 +979,8 @@ def run_batch_stepped(
                     if path is None:
                         path = ee_rrt_star_config_waypoints(
                             spec, q_np_cur[w], goals_np[w],
-                            ObstacleSet(zonos_infl[w], masks_host[w]), seed=77 * retry + w)
+                            ObstacleSet(zonos_infl[w], masks_host[w]), seed=77 * retry + w,
+                            device=dev, eager=eager)
                     rrt_paths[w] = [path, 1]
                     ee_paths.pop(w, None)
                     got = path is not None
@@ -1030,10 +1083,11 @@ def run_batch_stepped(
             t6 = time.perf_counter()
             launches1 = kernels.launch_counts()
             cache1 = planner.batch_programs.stats()
-            stages1 = runner.programs.stats()
+            stages1 = programs.stats()
             trace.append({
                 "iteration": it, "active": int(active.sum()),
-                "ref_waypoints_s": t1 - t0, "build_probs_s": marks["built"] - t1,
+                "ref_waypoints_s": t1 - t0, "ee_waypoints_s": ee_s,
+                "build_probs_s": marks["built"] - t1,
                 "solve_s": t3 - marks["built"],
                 "roll_and_check_s": t4 - t3, "mesh_refine_s": t5 - t4, "host_s": t6 - t5,
                 "wall_s": t6 - t0,
@@ -1041,13 +1095,15 @@ def run_batch_stepped(
                 "feasible": int((active & feas).sum()),
                 "launches": {k: launches1[k] - launches0[k] for k in launches1},
                 "rollout_launches": fused_rollout.launches - moves0,
-                "clearance_worlds": n_clear, "mesh_flagged": n_flagged,
+                "clearance_worlds": n_clear, "ee_worlds": len(ws), "mesh_flagged": n_flagged,
                 "mesh_confirmed": int((col & active).sum()),
                 "goals": int(summ["goal_reached"].sum()),
                 "guidance_paths": {str(w): {"index": st[1], "length": len(st[0])}
                                    for w, st in rrt_paths.items() if st[0] is not None},
                 **{f"program_{k}": cache1[k] - cache0[k] for k in ("captures", "hits", "misses")},
-                **{f"stage_{k}": stages1[k] - stages0[k] for k in ("captures", "hits", "misses")},
+                **{f"stage_{k}": stages1[k] - stages0[k]
+                   for k in ("captures", "hits", "misses", "evictions")},
+                "stage_hits_by_name": dict(stage_hits),
                 "memory_allocated": torch.cuda.memory_allocated(dev) if dev.type == "cuda" else None,
             })
         if verbose:
@@ -1057,5 +1113,5 @@ def run_batch_stepped(
             progress(it, summary())
 
     planner.batch_programs.clear()
-    runner.programs.clear()
+    programs.clear()
     return summary()

@@ -70,12 +70,26 @@ Phases (each prints one JSON line; any failure exits non-zero):
               (1, 1), against plan_batch on the 8obs worlds' 8 slots; then the
               local bank pass of a cp = 2 rank (4 of 8 slots, 20 of 40) through
               the step, with the main kernel against its plain version there
+10b. guidance
+              the guidance's kept programs (the JAX package's compiled helpers
+              of the battery's host guidance) against the same functions op
+              by op, at the battery's shapes: the end-effector positions
+              (ee) and the IK (ik) of the 100 worlds of assets/worlds in f32,
+              the mesh refinement's FK of 50-step windows at every row bucket
+              (1, 2, 4, ..., 64, 100), the one-row f64 IK of the
+              configuration waypoints and ee_rrt_star_config_waypoints
+              itself, and optimization_waypoint (f64, 40 slots): each equal
+              to op by op to the bit on its first call and on its replays;
+              ms per call kept and op by op, capture ms, and the captures,
+              hits and evictions of a stage cache sized as the battery sizes
+              its own (and of the module's cache of hlp.py)
 11. battery  run_batch_stepped over the 100 worlds of assets/worlds at
               B=100, T=128, f32, 2 iterations, mesh oracle: one JSON line per
               iteration (wall split, buckets, launches = 65 and one rollout
               kernel launch, mesh hits), the summary with the mean split,
               each iteration's roll_and_check_s and the kept stages' captures,
-              hits and misses; fails on any safety violation.  The main
+              hits (by stage too: ee, ik, fk), misses and evictions; fails on
+              any safety violation.  The main
               kernel is held against its plain version on the battery's
               first bank
 12. hard     the doorway scene with up-front RRT-connect guidance, 2
@@ -239,6 +253,139 @@ SUMMARY_FIELDS = ("goal_reached", *SAFETY, "stopped", "iterations", "n_feasible_
 SWEEP_RTOL = 1e-2
 
 
+def guidance_phase(torch, dev, n_worlds=100, reps=5):
+    """Phase 10b: each kept program of the host guidance against the same
+    function op by op, at the battery's shapes (see the module's docstring).
+    ``n_worlds`` and ``reps`` exist to rehearse the phase on the CPU, where
+    a kept program runs op by op through its buffers."""
+    from armour_tpu_torch.collision.zonotope import ObstacleSet
+    from armour_tpu_torch.config import PlannerConfig, SimConfig
+    from armour_tpu_torch.dynamics.utility import ee_pose
+    from armour_tpu_torch.planner import hlp
+    from armour_tpu_torch.robots.kinova import kinova_gen3_spec
+    from armour_tpu_torch.sim import harness
+    from armour_tpu_torch.sim.scenarios import load_world_csv, stack_worlds
+    from armour_tpu_torch.utils.graphs import CapturedStep, KeptFunction, ProgramCache
+
+    spec, cfg, sim = kinova_gen3_spec(), PlannerConfig(), SimConfig()
+    f32, f64 = torch.float32, torch.float64
+    cuda = torch.device(dev).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def timed(fn, n=reps):
+        """Median host ms of fn() ending in a synchronise, and its output."""
+        times, out = [], None
+        for _ in range(n):
+            sync()
+            t0 = time.perf_counter()
+            out = fn()
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times), out
+
+    as_bits = {f32: torch.int32, f64: torch.int64}
+
+    def same(a, b):
+        """Equal to the bit (tensors as bit patterns, NaN where both are)."""
+        if isinstance(a, torch.Tensor):
+            return a.dtype == b.dtype and torch.equal(
+                *(x.cpu().view(as_bits[x.dtype]) if x.dtype in as_bits else x.cpu() for x in (a, b)))
+        if isinstance(a, np.ndarray):
+            return np.array_equal(a, b)
+        if isinstance(a, tuple):
+            return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+        return a == b
+
+    def capture_ms(prog):
+        return prog.step.capture_ms if isinstance(prog.step, CapturedStep) else None
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    files = sorted(glob.glob(os.path.join(root, "assets", "worlds", "*.csv")))[:n_worlds]
+    worlds = [load_world_csv(f, cfg.max_obstacles, f32, device=dev) for f in files]
+    starts, goals, zonos, masks = stack_worlds(worlds, f32)
+    B = starts.shape[0]
+    # a stage cache of the size the battery driver gives its own
+    cache = ProgramCache(len(harness.STAGES) + (B - 1).bit_length() + 1)
+    programs = {}
+
+    def kept_against_eager(name, fn, *args):
+        eager_ms, ref = timed(lambda: fn(*args), max(reps - 2, 1))
+        key = (name, *(tuple(x.shape) for x in args))
+
+        def run():
+            return cache.run(key, lambda: KeptFunction(fn, dev), *args)
+
+        first_ms, first = timed(run, 1)
+        equal = [same(first, ref)]
+        kept_ms, out = timed(run)
+        equal.append(same(out, ref))
+        assert all(equal), f"guidance: kept {name} differs from op by op {equal}"
+        programs[name] = {"equal_to_eager": True, "kept_ms": kept_ms, "eager_ms": eager_ms,
+                          "first_call_ms": first_ms, "capture_ms": capture_ms(cache.entries[key])}
+
+    # the battery's ee and ik stages: every world's end effector, then the IK
+    # to the end effector of its goal from halfway there
+    kept_against_eager("ee", lambda q: (ee_pose(spec, q)[1],), starts)
+    targets = ee_pose(spec, goals)[1]
+    kept_against_eager("ik", lambda t, s: hlp.ik_to_position(spec, t, s), targets,
+                       0.5 * (starts + goals))
+    # the mesh refinement's FK at every row bucket, on windows of the check
+    # length around each start
+    n_chk = int(round(sim.t_move / sim.check_dt))
+    rng = np.random.default_rng(12)
+    log_q = starts[:, None] + torch.as_tensor(rng.uniform(-0.2, 0.2, (B, n_chk, 7)), dtype=f32,
+                                              device=dev)
+    buckets = sorted({harness.fk_rows(F, B) for F in range(1, B + 1)})
+    for n in buckets:
+        rows_n = torch.as_tensor(rng.permutation(B)[:n], device=dev)
+        kept_against_eager(f"fk[{n}]", lambda lq, r: harness.windows_fk(spec, lq, r), log_q, rows_n)
+    # the configuration waypoints' program: one row, f64
+    kept_against_eager("ik[B=1,f64]", lambda t, s: hlp.ik_to_position(spec, t, s),
+                       targets[:1].to(f64), (0.5 * (starts + goals))[:1].to(f64))
+    stage_cache = cache.stats()
+    cache.clear()
+
+    # the entry points through the module's cache: the configuration
+    # waypoints of the first world that has an EE RRT* path, and the
+    # optimization waypoint of world 0
+    hlp.PROGRAMS.clear()
+    s_np, g_np = starts.double().cpu().numpy(), goals.double().cpu().numpy()
+    z_np, m_np = zonos.double().cpu().numpy(), masks.cpu().numpy()
+    entry = {}
+    for w in range(min(B, 5)):
+        obs_w = ObstacleSet(z_np[w], m_np[w])
+        call = {}
+        for eager in (False, True):
+            call[eager] = timed(lambda: hlp.ee_rrt_star_config_waypoints(
+                spec, s_np[w], g_np[w], obs_w, seed=w, device=dev, eager=eager), 1)
+        if call[False][1] is None:
+            continue
+        assert same(call[False][1], call[True][1]), "guidance: kept configuration waypoints differ"
+        entry["config_waypoints"] = {"world": os.path.basename(files[w]),
+                                     "waypoints": len(call[False][1]), "equal_to_eager": True,
+                                     "kept_ms": call[False][0], "eager_ms": call[True][0]}
+        break
+    assert "config_waypoints" in entry, "guidance: no EE RRT* path in the first worlds"
+    obs0 = ObstacleSet(z_np[0], m_np[0])
+    opt = {}
+    for eager in (True, False, False):
+        opt.setdefault(eager, []).append(timed(lambda: hlp.optimization_waypoint(
+            spec, s_np[0], g_np[0], obs0, device=dev, eager=eager), 1))
+    assert all(same(k[1], opt[True][0][1]) for k in opt[False]), "guidance: kept optimization waypoint differs"
+    entry["optimization_waypoint"] = {"obstacle_slots": int(z_np.shape[1]), "equal_to_eager": True,
+                                      "ok": bool(opt[True][0][1][1]), "eager_ms": opt[True][0][0],
+                                      "first_call_ms": opt[False][0][0], "kept_ms": opt[False][1][0]}
+    entry["capture_ms"] = {k[0]: capture_ms(p) for k, p in hlp.PROGRAMS.entries.items()}
+    module_cache = hlp.PROGRAMS.stats()
+    hlp.PROGRAMS.clear()
+    emit({"phase": "guidance", "worlds": B, "dtype": "float32", "check_steps": n_chk,
+          "fk_row_buckets": buckets, "programs": programs, **entry,
+          "stage_cache": dict(stage_cache, capacity=cache.capacity), "hlp_cache": module_cache})
+
+
 def episode_phases(torch, dev, check_and_time, rows, out_dir, n_worlds=100, T=128, sim_kw=None,
                    episode_worlds=128):
     """Phases 11-14, the receding-horizon episode paths: the 100-world battery,
@@ -334,7 +481,9 @@ def episode_phases(torch, dev, check_and_time, rows, out_dir, n_worlds=100, T=12
           "program_captures": [tr["program_captures"] for tr in trace],
           "program_hits": [tr["program_hits"] for tr in trace],
           "roll_and_check_s": [tr["roll_and_check_s"] for tr in trace],
-          **{f"stage_{k}": [tr[f"stage_{k}"] for tr in trace] for k in ("captures", "hits", "misses")},
+          **{f"stage_{k}": [tr[f"stage_{k}"] for tr in trace]
+             for k in ("captures", "hits", "misses", "evictions", "hits_by_name")},
+          "ee_worlds": [tr["ee_worlds"] for tr in trace],
           "memory_allocated": [tr["memory_allocated"] for tr in trace],
           "split_mean_s": {k: statistics.mean(tr[k] for tr in trace) for k in
                            ("ref_waypoints_s", "build_probs_s", "solve_s", "roll_and_check_s",
@@ -2139,6 +2288,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     ext_rows = extension_phases(torch, dev, check_and_time, rows, probs8, probs40,
                                 T=cfg.num_time_steps)
+
+    # ---- 10b. the guidance's kept programs ---------------------------------
+    torch.cuda.empty_cache()
+    guidance_phase(torch, dev)
 
     # ---- 11-14. the receding-horizon episode paths -------------------------
     del probs40

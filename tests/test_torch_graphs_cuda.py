@@ -1,7 +1,10 @@
 """The CUDA graphs of the solver iteration and of the RK4 step of
-``rollout_plain``, the kept plan programs and the kept episode steps
+``rollout_plain``, the kept plan programs, the kept episode steps
 (``EpisodeRunner.run_batch``'s ``EpisodeProgram``, a move captured through
-a ``KeptFunction``) against the same steps run op by op, on the card.
+a ``KeptFunction``) and the guidance's kept programs (the IK, the
+end-effector positions, the mesh refinement's FK, the configuration and
+optimization waypoints; the battery's stage cache) against the same steps
+run op by op, on the card.
 
 Runs only where a CUDA device is present (marker ``cuda``; elsewhere each
 test skips).  This file imports no JAX, so it runs on a machine without it:
@@ -425,6 +428,118 @@ def test_captured_move_equals_a_bare_launch_and_counts_each_replay(card):
             assert _same(a, b), i
     assert kept.step.graph is not None
     kept.release()
+
+
+def _kept_against_eager(fn, args, card, calls=2):
+    """``fn(*args)`` through a ``KeptFunction`` (the first call captures,
+    later ones replay), each call's outputs against ``fn(*args)`` op by op
+    to the bit; returns the kept function (captured) for its capture ms."""
+    ref = fn(*args)
+    kept = KeptFunction(fn, card)
+    for i in range(calls):
+        got = kept(*args)
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            assert _same(a, b), i
+    assert kept.step.graph is not None
+    return kept
+
+
+@pytest.mark.parametrize("B, dtype", [(100, torch.float32), (1, torch.float64)],
+                         ids=["B100-f32", "B1-f64"])
+def test_kept_ik_equals_eager_to_the_bit(card, B, dtype):
+    """The damped-least-squares IK (60 iterations, the position Jacobian
+    by forward-mode tangents, the 3 x 3 SPD solve) kept as one graph: the
+    battery's ``ik`` stage (B=100, f32) and the configuration waypoints'
+    program (one row, f64)."""
+    from armour_tpu_torch.dynamics.utility import ee_pose
+    from armour_tpu_torch.planner.hlp import ik_to_position
+
+    rng = np.random.default_rng(7)
+    q = torch.as_tensor(np.array(Q_HOME) + rng.uniform(-0.5, 0.5, (B, 7)), dtype=dtype, device=card)
+    targets = ee_pose(SPEC, q + 0.2)[1]
+    targets[-1] = torch.tensor([3.0, 0.0, 0.5])           # out of reach
+    kept = _kept_against_eager(lambda t, s: ik_to_position(SPEC, t, s), (targets, q), card)
+    assert kept.step.capture_ms > 0.0
+    kept.release()
+
+
+def test_kept_ee_position_and_windows_fk_equal_eager_at_every_row_bucket(card):
+    """The battery's ``ee`` stage (B=100, f32) and its mesh-refinement FK
+    at each row bucket of ``fk_rows`` (1, 2, 4, ..., 64, 100), each kept
+    as one graph, against op by op to the bit."""
+    from armour_tpu_torch.dynamics.utility import ee_pose
+
+    rng = np.random.default_rng(8)
+    f32 = torch.float32
+    q = torch.as_tensor(np.array(Q_HOME) + rng.uniform(-1, 1, (100, 7)), dtype=f32, device=card)
+    _kept_against_eager(lambda x: (ee_pose(SPEC, x)[1],), (q,), card).release()
+    log_q = torch.as_tensor(np.array(Q_HOME) + rng.uniform(-1, 1, (100, 50, 7)), dtype=f32, device=card)
+    buckets = sorted({harness.fk_rows(F, 100) for F in range(1, 101)})
+    assert buckets == [1, 2, 4, 8, 16, 32, 64, 100]
+    for n in buckets:
+        rows = torch.as_tensor(rng.permutation(100)[:n], device=card)
+        _kept_against_eager(lambda lq, r: harness.windows_fk(SPEC, lq, r), (log_q, rows), card).release()
+
+
+def test_kept_config_waypoints_and_optimization_waypoint_equal_eager(card):
+    """``ee_rrt_star_config_waypoints`` (one replay of the kept one-row f64
+    IK per waypoint) and ``optimization_waypoint`` (its ALM kept whole)
+    against ``eager=True`` to the bit; a second optimization waypoint at
+    the same obstacle count replays the first one's program."""
+    from armour_tpu_torch.planner import hlp
+
+    hlp.PROGRAMS.clear()
+    obs = ObstacleSet.from_boxes([[0.45, 0.35, 0.55]], [[0.12, 0.12, 0.12]], 4)
+    q_goal = np.array(Q_HOME) + np.array([0.5, 0.4, -0.3, 0.6, 0.2, -0.4, 0.3])
+    got = hlp.ee_rrt_star_config_waypoints(SPEC, np.array(Q_HOME), q_goal, obs, seed=5, device=card)
+    want = hlp.ee_rrt_star_config_waypoints(SPEC, np.array(Q_HOME), q_goal, obs, seed=5, device=card,
+                                            eager=True)
+    assert got is not None and np.array_equal(got, want)
+    assert hlp.PROGRAMS.stats()["captures"] == 1
+    rng = np.random.default_rng(9)
+    obs = ObstacleSet.from_boxes([[-0.3, 0.1, 0.5]], [[0.15, 0.15, 0.15]], 8)
+    for i in range(2):
+        q_start = np.array(Q_HOME) + rng.uniform(-0.3, 0.3, 7)
+        q_end = q_start + rng.uniform(-0.5, 0.5, 7)
+        kept = hlp.optimization_waypoint(SPEC, q_start, q_end, obs, device=card)
+        eager = hlp.optimization_waypoint(SPEC, q_start, q_end, obs, device=card, eager=True)
+        assert kept[1] == eager[1] and np.array_equal(kept[0], eager[0]), i
+    stats = hlp.PROGRAMS.stats()
+    assert (stats["misses"], stats["captures"], stats["evictions"]) == (2, 2, 0), stats
+    hlp.PROGRAMS.clear()
+
+
+def test_battery_stage_cache_captures_nothing_after_warm_up(card):
+    """20 iterations of the battery driver over 8 worlds of `assets/worlds`
+    with workspace-path guidance (the ``ee`` and ``ik`` stages every
+    iteration) and the mesh oracle: the runner's stage cache holds every
+    stage, so a stage is captured once, at its first call, and never
+    evicted; the ``ee`` and ``ik`` stages replay at every later iteration."""
+    import glob
+    import os
+
+    from armour_tpu_torch.sim.scenarios import load_world_csv, stack_worlds
+
+    cfg = dataclasses.replace(CFG, num_time_steps=32)
+    root = os.path.join(os.path.dirname(__file__), "..", "assets", "worlds")
+    files = sorted(glob.glob(os.path.join(root, "*.csv")))[:8]
+    worlds = [load_world_csv(f, cfg.max_obstacles, torch.float32, device=card) for f in files]
+    runner = harness.EpisodeRunner(SPEC, cfg, SimConfig(max_iterations=20), torch.float32, device=card)
+    trace = []
+    harness.run_batch_stepped(runner, *stack_worlds(worlds, torch.float32),
+                              torch.Generator(device=card).manual_seed(0), collision_oracle="mesh",
+                              hlp="ee_rrt_star", trace=trace)
+    assert len(trace) >= 10, len(trace)
+    assert runner.programs.capacity == len(harness.STAGES) + 4           # FK buckets 1, 2, 4, 8
+    assert all(t["stage_evictions"] == 0 for t in trace), [t["stage_evictions"] for t in trace]
+    # a key misses only where it was never met (nothing is evicted), and
+    # each miss is one capture: a stage (the clearance, a new FK bucket) may
+    # be met late, never captured again
+    assert all(t["stage_captures"] == t["stage_misses"] for t in trace), trace
+    assert sum(t["stage_captures"] for t in trace) <= runner.programs.capacity
+    later = [t for t in trace[1:] if t["ee_worlds"]]
+    assert later and all(t["stage_hits_by_name"].get("ik") == 1 for t in later)
 
 
 def test_repeated_episodes_at_one_key_hold_no_memory(card):

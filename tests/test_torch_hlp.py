@@ -152,7 +152,7 @@ def test_ee_rrt_star_paths_match_jax():
     _same_path(hlp.ee_rrt_star_waypoints(SPEC, Q_HOME, point, obs, seed=4),
                jax_hlp.ee_rrt_star_waypoints(JSPEC, Q_HOME, point, jobs, seed=4), 1e-9)
     want = jax_hlp.ee_rrt_star_config_waypoints(JSPEC, Q_HOME, q_goal, jobs, seed=2)
-    got = hlp.ee_rrt_star_config_waypoints(SPEC, Q_HOME, q_goal, obs, seed=2)
+    got = hlp.ee_rrt_star_config_waypoints(SPEC, Q_HOME, q_goal, obs, seed=2, device="cpu")
     _same_path(got, want, 1e-9)
     np.testing.assert_allclose(got[-1], q_goal, atol=1e-12)
 

@@ -140,6 +140,8 @@ def test_episode_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch, tmp_
         lambda: scenarios.generate_random_world(spec, np.random.default_rng(0), 1, 4),
         lambda: hlp.optimization_waypoint(spec, np.zeros(7), np.ones(7),
                                           ObstacleSet.from_boxes([[5.0, 5.0, 5.0]], [[0.1] * 3], 4)),
+        lambda: hlp.ee_rrt_star_config_waypoints(
+            spec, np.zeros(7), np.ones(7), ObstacleSet.from_boxes([[5.0, 5.0, 5.0]], [[0.1] * 3], 4)),
         lambda: run_worlds.main(["--max-worlds", "1", "--max-iterations", "1"]),
         lambda: run_hard_scenarios.main(["--scenarios", "2", "--max-iterations", "1"]),
     ]

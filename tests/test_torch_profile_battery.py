@@ -49,5 +49,5 @@ def test_profile_battery_profiles_a_late_slice():
     assert prof["wall_s"] == out["iterations"][1]["wall_s"]
     phases = prof["phase_s"]
     assert set(phases) == {"rrt_connect", "rrt_star", "ee_rrt_star", "ee_rrt_star_config", "ik",
-                           "clearance_waypoint", "mesh_oracle"}
+                           "clearance_waypoint", "mesh_oracle", "ee_waypoints"}
     assert all(0.0 <= v <= prof["wall_s"] for v in phases.values())
