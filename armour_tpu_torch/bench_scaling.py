@@ -15,11 +15,15 @@ per rank at the fixed ``q0`` plus ``uniform(-0.2, 0.2)`` from numpy seed 0,
 at rest, ``q_des = q0 + 0.4 k_range``, one 0.06 box at (0.5, 0.3, 0.5).
 ``--production`` plans at T=128 with 8 slots and the default 4-start 8x8
 ALM; otherwise at ``--time-steps`` with 4 slots, 2 starts and a 4x4 ALM.
-After a warm-up step, ``--reps`` steps are timed (the slowest rank's time);
-rank 0 prints each row (``devices``, ``worlds``, ``plans_per_s``,
-``plans_per_s_per_device``), and with two rows or more the
-``scaling_efficiency`` of the last over the first.  ``--out`` writes them
-with the card's name and power limit.
+The step is kept per shape: its first call (which captures on a card) is
+timed apart, then ``--reps`` replays one by one (each the slowest rank's
+time); ``plans_per_s`` is read from the mean replay (all the replays'
+work over all their time), the median replay kept beside it.  Rank 0
+prints each row (``devices``, ``worlds``, ``plans_per_s``,
+``plans_per_s_per_device``, ``first_call_s``, ``replay_s``), and with two
+rows or more the ``scaling_efficiency`` of the last over the first.
+``--out`` writes them with the keys of the JAX script's rows and, on
+cards, the step times (``steps``) and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -84,27 +89,28 @@ def _rank(rank, n, args, port, out_path):
         k_rand = step.planner.random_starts(B, torch.Generator(device=dev).manual_seed(0)).cpu()
         *worlds, k_local = scatter_worlds(mesh, *problem(cfg, B), k_rand)
 
-        def run():
+        times = []
+        for _ in range(1 + args.reps):           # the first call, then the replays
+            dist.barrier()
+            t0 = time.perf_counter()
             res = step(*worlds, k_rand=k_local)
             if dev.type == "cuda":
                 torch.cuda.synchronize()
-            return res
-
-        run()                                                   # warm-up
-        dist.barrier()
-        t0 = time.perf_counter()
-        for _ in range(args.reps):
-            res = run()
-        dt = torch.tensor([(time.perf_counter() - t0) / args.reps], dtype=torch.float64, device=dev)
+            times.append(time.perf_counter() - t0)
+        dt = torch.tensor(times, dtype=torch.float64, device=dev)
         dist.all_reduce(dt, op=dist.ReduceOp.MAX)               # the slowest rank's step
         feasible = torch.tensor([int(res.feasible.sum())], device=dev)
         dist.all_reduce(feasible)
         if rank == 0:
-            sec = float(dt)
+            first, *replays = dt.tolist()
+            sec = sum(replays) / len(replays)
             with open(out_path, "w") as f:
                 json.dump({"devices": n, "worlds": B, "plans_per_s": round(B / sec, 2),
                            "plans_per_s_per_device": round(B / sec / n, 2),
-                           "seconds_per_step": sec, "feasible": int(feasible)}, f)
+                           "first_call_s": first, "replay_s": replays,
+                           "seconds_per_step": sec, "median_replay_s": statistics.median(replays),
+                           "feasible": int(feasible),
+                           "programs": step.planner.batch_programs.stats()}, f)
     finally:
         dist.destroy_process_group()
 
@@ -121,6 +127,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--timeout", type=float, default=900.0, help="seconds per device count")
     ap.add_argument("--out", default="", help="write the rows here")
     args = ap.parse_args(argv)
+    if args.reps < 1:
+        ap.error("--reps: at least one replay")
     if args.production:
         args.time_steps = 128
     if args.virtual:
@@ -133,7 +141,7 @@ def main(argv=None) -> dict:
         from armour_tpu_torch.collision import kernels
 
         kernels.build()          # once, before the ranks load it
-    rows = []
+    rows, steps = [], []
     with tempfile.TemporaryDirectory() as tmp:
         for n in (c for c in COUNTS if c <= n_dev):
             out_path = os.path.join(tmp, f"row{n}.json")
@@ -144,6 +152,8 @@ def main(argv=None) -> dict:
                 row = json.load(f)
             rows.append({k: row[k] for k in ("devices", "worlds", "plans_per_s",
                                              "plans_per_s_per_device")})
+            steps.append({k: row[k] for k in ("devices", "first_call_s", "replay_s", "seconds_per_step",
+                                              "median_replay_s", "programs")})
             print(json.dumps(row), flush=True)
     summary = {}
     if len(rows) >= 2:
@@ -155,7 +165,8 @@ def main(argv=None) -> dict:
            "note": ("gloo ranks on one host's CPU: the rows show that the sharded step runs "
                     "at each device count, not per-device scaling") if args.virtual else "",
            "rows": rows, **summary}
-    if not args.virtual:
+    if not args.virtual:           # the card's extras: the step times, the card
+        out["steps"] = steps
         out["device"] = torch.cuda.get_device_name(0)
         out["nvidia_smi"] = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

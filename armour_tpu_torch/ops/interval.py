@@ -22,6 +22,10 @@ class Interval(NamedTuple):
     def point(x) -> "Interval":
         return Interval(x, x)
 
+    @staticmethod
+    def from_center_radius(c, r) -> "Interval":
+        return Interval(c - r, c + r)
+
     @property
     def center(self):
         return 0.5 * (self.lo + self.hi)
@@ -70,8 +74,15 @@ class Interval(NamedTuple):
         lo = torch.where((self.lo <= 0.0) & (self.hi >= 0.0), 0.0, torch.minimum(lo2, hi2))
         return Interval(lo, hi)
 
+    def abs_sup(self):
+        """sup |x| over the interval."""
+        return torch.maximum(self.lo.abs(), self.hi.abs())
+
     def union(self, o: "Interval") -> "Interval":
         return Interval(torch.minimum(self.lo, o.lo), torch.maximum(self.hi, o.hi))
+
+    def contains(self, x, atol=0.0):
+        return (self.lo - atol <= x) & (x <= self.hi + atol)
 
 
 _TWO_PI = 2.0 * math.pi

@@ -22,7 +22,7 @@ from typing import Sequence
 
 import numpy as np
 import torch
-from armour_tpu_torch.device import const
+from armour_tpu_torch.device import const, resolve_device
 
 # variable index space: 0..n_factors-1 are trajectory parameters k_i;
 # SHAPE_X.. are the reserved link-shape generator variables that must
@@ -101,6 +101,12 @@ class PZ:
         return PZ(c, c.new_zeros((0,) + c.shape), r_arr, (), nval)
 
     @staticmethod
+    def from_uncertain(c: torch.Tensor, uncertainty_percent: float,
+                       nval: int | None = None) -> "PZ":
+        """center +/- uncertainty*|center| as pure interval (PZsparse.cu:93-98)."""
+        return PZ.const(c, nval=nval, r=uncertainty_percent * c.abs())
+
+    @staticmethod
     def from_gens(c: torch.Tensor, keys: Sequence[MonKey], coeffs: Sequence, r=None,
                   nval: int | None = None) -> "PZ":
         """Build from explicit monomials; duplicate keys are merged."""
@@ -125,6 +131,10 @@ class PZ:
     @property
     def ngens(self) -> int:
         return len(self.basis)
+
+    @property
+    def batch_shape(self):
+        return self.c.shape[:self.c.ndim - self.nval]
 
     @property
     def val_shape(self):
@@ -241,6 +251,18 @@ class PZ:
         if self.ngens:
             rad = rad + self.G.abs().sum(0)
         return self.c - rad, self.c + rad
+
+    # -- slicing ---------------------------------------------------------
+    def monomials(self, k: torch.Tensor) -> torch.Tensor:
+        """Evaluate the basis monomials at trajectory parameter k: (NG,)."""
+        assert all(_shape_degree(key) == 0 for key in self.basis), (
+            "call reduce()/reduce_link() before slicing"
+        )
+        return _monomials(self.basis, k)
+
+    def slice(self, k: torch.Tensor):
+        """Slice at concrete k: (center(k), radius)."""
+        return _slice(self.c, self.G, self.r, self.monomials(k))
 
 
 # ---------------------------------------------------------------------------
@@ -503,6 +525,13 @@ def rot_from_cos_sin(cos_pz: PZ, sin_pz: PZ, axis: int, fixed_rot: np.ndarray) -
     return pz_matmat(F, R_axis)
 
 
+def pz_zeros_vec(batch_shape, dtype=torch.float64, device=None) -> PZ:
+    """The zero 3-vector PZ of ``batch_shape`` on ``device`` (default the
+    card, `device.resolve_device`)."""
+    z = torch.zeros(tuple(batch_shape) + (3,), dtype=dtype, device=resolve_device(device))
+    return PZ(z, z.new_zeros((0,) + z.shape), torch.zeros_like(z), (), 1)
+
+
 def pz_transpose(p: PZ) -> PZ:
     assert p.nval == 2
     return PZ(p.c.transpose(-1, -2), p.G.transpose(-1, -2), p.r.transpose(-1, -2), p.basis, 2)
@@ -535,6 +564,42 @@ def _int_pow(x: torch.Tensor, e: torch.Tensor, max_exp: int) -> torch.Tensor:
     return out
 
 
+def _monomials_with_jac(basis: tuple, K: torch.Tensor):
+    """The monomials of ``basis`` at K (..., n) -> M (..., NG) and dM/dK
+    (..., NG, n), the Jacobian derived analytically from the basis."""
+    var, exp, max_exp = _mono_plan(basis, K.device)
+    kv = K[..., var]                                    # (..., NG, F)
+    fac = _int_pow(kv, exp, max_exp)
+    dfac = exp.to(K.dtype) * _int_pow(kv, (exp - 1).clamp(min=0), max_exp)
+    F = var.shape[1]
+    M = fac[..., 0]
+    for f in range(1, F):
+        M = M * fac[..., f]
+    dM = K.new_zeros(K.shape[:-1] + (len(basis), K.shape[-1]))
+    for f in range(F):
+        d = dfac[..., f]
+        for f2 in range(F):
+            if f2 != f:
+                d = d * fac[..., f2]
+        dM = dM.scatter_add(-1, var[:, f:f + 1].expand(d.shape + (1,)), d[..., None])
+    return M, dM
+
+
+def _monomials(basis: tuple, k: torch.Tensor) -> torch.Tensor:
+    """The monomials of ``basis`` at one k (n,): (NG,)."""
+    if not basis:
+        return k.new_zeros((0,))
+    var, exp, max_exp = _mono_plan(basis, k.device)
+    return _int_pow(k[var], exp, max_exp).prod(-1)
+
+
+def _slice(c, G, r, m):
+    """(c + sum_g m_g G_g, r): a slice at the monomials m (NG,)."""
+    if len(m):
+        c = c + torch.tensordot(m, G, dims=1)
+    return c, r
+
+
 @dataclasses.dataclass(frozen=True)
 class PackedPZ:
     """A group of PZs re-indexed onto one shared (union) monomial basis and
@@ -550,22 +615,21 @@ class PackedPZ:
     def monomials_with_jac(self, K: torch.Tensor):
         """Monomials at K (..., n) -> M (..., NG) and dM/dK (..., NG, n),
         the Jacobian derived analytically from the (tiny) basis."""
-        var, exp, max_exp = _mono_plan(self.basis, K.device)
-        kv = K[..., var]                                    # (..., NG, F)
-        fac = _int_pow(kv, exp, max_exp)
-        dfac = exp.to(K.dtype) * _int_pow(kv, (exp - 1).clamp(min=0), max_exp)
-        F = var.shape[1]
-        M = fac[..., 0]
-        for f in range(1, F):
-            M = M * fac[..., f]
-        dM = K.new_zeros(K.shape[:-1] + (len(self.basis), K.shape[-1]))
-        for f in range(F):
-            d = dfac[..., f]
-            for f2 in range(F):
-                if f2 != f:
-                    d = d * fac[..., f2]
-            dM = dM.scatter_add(-1, var[:, f:f + 1].expand(d.shape + (1,)), d[..., None])
-        return M, dM
+        return _monomials_with_jac(self.basis, K)
+
+    def monomials(self, k: torch.Tensor) -> torch.Tensor:
+        """The monomials at one k (n,): (NG,)."""
+        return _monomials(self.basis, k)
+
+    def slice(self, k: torch.Tensor):
+        """(center(k), radius) at one k (n,), the same k for every world."""
+        return _slice(self.c, self.G, self.r, self.monomials(k))
+
+    def slice_with_jac(self, k: torch.Tensor):
+        """(center(k), radius, dcenter/dk (n, *c.shape)) at one k (n,):
+        ``slice_with_jac_multi`` with k as the one start of every row."""
+        c, r, dc = self.slice_with_jac_multi(k.expand(self.c.shape[0], 1, k.shape[0]))
+        return c[:, 0], r, dc[:, 0].movedim(1, 0)
 
     def slice_with_jac_multi(self, K: torch.Tensor):
         """K (B, S, n) -> (centers (B, S, *shape), radius (B, *shape),

@@ -11,11 +11,12 @@ process per device (NCCL on CUDA, gloo on the CPU):
   slice of the hyperplane bank and the NLP all-gathers the collision block
   over the group (`ArmourPlanner.solve(collision_group=...)`).
 
-The JAX package expresses this as one ``shard_map`` program over a device
-mesh; here every rank runs the same eager step on its own shard, and the
-process group carries the gathers.  Every rank of a cp group must iterate
-on the same starts, or the gathered constraint vector would mix different
-iterates: the step draws them on the group's first rank and broadcasts
+The JAX package expresses this as one ``jax.jit`` of a ``shard_map``
+program over a device mesh; here every rank runs the same step on its own
+shard, kept per shape as a ``PlanProgram`` (CUDA graphs on a card), and
+the process group carries the gathers.  Every rank of a cp group must
+iterate on the same starts, or the gathered constraint vector would mix
+different iterates: the step takes the group's first rank's and broadcasts
 them.
 """
 
@@ -84,7 +85,7 @@ def sharded_plan_step(spec: RobotSpec, cfg: PlannerConfig, mesh: DeviceMesh,
     """The batched planning step of one rank of a (dp, cp) mesh.
 
     Returns ``step(q0, qd0, qdd0, q_des, zonos, masks, k_rand=None,
-    generator=None) -> PlanResult``: each rank passes its dp
+    generator=None, eager=False) -> PlanResult``: each rank passes its dp
     shard of the worlds (``scatter_worlds``) and its cp shard of the
     obstacle capacity axis of ``zonos`` / ``masks`` (``cp_shard``), and gets
     the plans of its dp shard (the same on every rank of a cp group).
@@ -94,26 +95,25 @@ def sharded_plan_step(spec: RobotSpec, cfg: PlannerConfig, mesh: DeviceMesh,
     bucket, so every rank's bank has one shape for the gather (as the JAX
     package's ``_make_plan_fn``).  The random starts (``k_rand`` or drawn
     from ``generator``) of the cp group's first rank are broadcast to the
-    group.  The warm start is zero, as in the JAX step.  With cp > 1 the
-    solver's iteration runs op by op, because the all-gather of the
-    collision block sits inside it; with cp = 1 it is a CUDA graph, as in
-    ``plan_batch``.
+    group.  The warm start is zero, as in the JAX step.
+
+    The step is the planner's full-width plan program
+    (``ArmourPlanner.run_program(full_width=True)``), kept per (B, shard
+    capacity) and cp group in ``step.planner.batch_programs``, the
+    counterpart of the JAX package's ``jax.jit`` of the ``shard_map``: the
+    first call at a shape captures, every later call replays through the
+    program's buffers.  With cp > 1 the build stays a graph and the solve,
+    which gathers the collision block, runs op by op through the program's
+    buffers (``ArmourPlanner.solve``).  ``eager=True`` builds and
+    solves op by op with no program, to hold the two against each other.
     """
     planner = ArmourPlanner(spec, cfg, dtype, device=mesh_device(mesh))
     cp_group = mesh.get_group("cp") if mesh.size(1) > 1 else None
-    src = dist.get_global_rank(cp_group, 0) if cp_group is not None else None
 
     def step(q0, qd0, qdd0, q_des, zonos, masks, k_rand=None,
-             generator: torch.Generator | None = None) -> PlanResult:
-        prob, link_gens, _, _ = planner.reachable_sets(q0, qd0, qdd0)
-        prob = prob._replace(hp=planner.buffer(link_gens, planner._t(zonos),
-                                               planner._t(masks, torch.bool)))
-        B = prob.q0.shape[0]
-        k_rand = (planner.random_starts(B, generator) if k_rand is None
-                  else planner._t(k_rand).clone())
-        if cp_group is not None:
-            dist.broadcast(k_rand, src=src, group=cp_group)
-        return planner.solve(prob, q_des, k_rand=k_rand, collision_group=cp_group)
+             generator: torch.Generator | None = None, eager: bool = False) -> PlanResult:
+        return planner.run_program(q0, qd0, qdd0, q_des, zonos, masks, k_rand, None, generator,
+                                   full_width=True, eager=eager, collision_group=cp_group)[0]
 
     step.planner = planner
     return step

@@ -125,6 +125,16 @@ def gather_obstacles(x: torch.Tensor, group) -> torch.Tensor:
 gather_obstacles.calls = 0
 
 
+def broadcast_starts(k_rand: torch.Tensor, group) -> torch.Tensor:
+    """Overwrite ``k_rand`` in place with the starts of the first rank of
+    ``group`` and return it: every rank of a cp group must iterate on the
+    same starts, or the gathered constraint vector would mix iterates."""
+    import torch.distributed as dist
+
+    dist.broadcast(k_rand, src=dist.get_global_rank(group, 0), group=group)
+    return k_rand
+
+
 def obstacle_bucket(masks) -> int:
     """Smallest obstacle capacity (a multiple of 8) covering every live
     slot of ``masks`` (`armour.py:213-228`): the bank, the solver's
@@ -408,8 +418,11 @@ class ArmourPlanner:
         bank holds its slice of the obstacle slots; the collision block is
         all-gathered over the group along the obstacle axis, so every rank
         sees the unsharded constraint vector.  Every rank of the group must
-        be given the same starts.  The gather is a collective that the
-        graph does not capture, so a sharded solve runs op by op.
+        be given the same starts.  The gather is a collective that no graph
+        here captures (a group of gloo ranks has none to capture, and one
+        NCCL rank per card needs several cards to check a capture), so a
+        sharded solve runs op by op, through ``keep``'s buffers where it is
+        given.
 
         ``keep``: the solve's state and steps across calls of one shape
         (``solve_box_alm_multi``), and the verification as one more step
@@ -537,7 +550,7 @@ class ArmourPlanner:
 
     def run_program(self, q0, qd0, qdd0, q_des, zonos, masks, k_rand=None, k_warm=None,
                     generator: torch.Generator | None = None, full_width: bool = False,
-                    marks: dict | None = None, eager: bool = False):
+                    marks: dict | None = None, eager: bool = False, collision_group=None):
         """(plan, problem) of B worlds through the programs kept in
         ``batch_programs``, the counterpart of the JAX package's compiled
         batched build and solve (`armour.py:124-189`).  The random starts are
@@ -562,22 +575,35 @@ class ArmourPlanner:
 
         ``eager=True`` builds (``build_fixed`` at full width, else
         ``build_probs``) and solves op by op with no program, to hold the
-        two against each other; the problem is then the call's own."""
+        two against each other; the problem is then the call's own.
+
+        ``collision_group``: a cp shard's plan (``solve``; full width only,
+        so that every rank's bank has one shape), kept at key
+        (B, cap, group).  The starts of the group's first rank replace this
+        rank's (``broadcast_starts``): in the program's starts buffer, or in
+        a copy with ``eager``."""
         q0, qd0, qdd0, q_des, zonos = (self._t(x) for x in (q0, qd0, qdd0, q_des, zonos))
         masks = self._t(masks, torch.bool)
         B, cap = masks.shape
+        if collision_group is not None and not full_width:
+            raise ValueError("a cp shard's plan builds every slot: full_width=True")
         k_rand = self.random_starts(B, generator) if k_rand is None else self._t(k_rand)
         k_warm = torch.zeros_like(k_rand[:, 0]) if k_warm is None else self._t(k_warm)
         if eager:
             prob = (self.build_fixed if full_width else self.build_probs)(q0, qd0, qdd0, zonos, masks)
             _mark(marks, "built", self.device)
-            res = self.solve(prob, q_des, k_rand=k_rand, k_warm=k_warm, eager=True)
+            if collision_group is not None:
+                k_rand = broadcast_starts(k_rand.clone(), collision_group)
+            res = self.solve(prob, q_des, k_rand=k_rand, k_warm=k_warm, eager=True,
+                             collision_group=collision_group)
             _mark(marks, "solved", self.device)
             return res, prob
         progs = self.batch_programs
         b = cap if full_width else obstacle_bucket(masks)
         if full_width or not self.cfg.obstacle_culling or b <= 8:
-            key, make = (B, b), lambda: PlanProgram(self, b, B)
+            # a program gathers over the group it was made with
+            key = (B, b) if collision_group is None else (B, b, collision_group)
+            make = lambda: PlanProgram(self, b, B, collision_group=collision_group)  # noqa: E731
             zonos, masks = zonos[:, :b], masks[:, :b]
         else:
             reach = progs.run((B, cap, "reach"), lambda: ReachStage(self, B, cap),
@@ -725,19 +751,23 @@ class PlanProgram:
     update (8) and the verification with the choice of the best plan
     (``ArmourPlanner.solve(keep=...)``).  No graph is launched inside
     another capture.  On the CPU all of it runs op by op through the same
-    buffers.  A call returns the plan; ``prob`` holds the problem.  The
-    program holds its planner weakly (the planner's caches hold programs),
-    so the planner must outlive it."""
+    buffers.  With a ``collision_group`` (a cp shard of the sharded step,
+    `parallel/mesh.py`) a call first overwrites the starts buffer with the
+    group's first rank's (``broadcast_starts``); the build stays a graph
+    and the solve, which gathers, runs op by op (``solve``).  A call returns the plan; ``prob``
+    holds the problem.  The program holds its planner weakly (the
+    planner's caches hold programs), so the planner must outlive it."""
 
     STEPS = ("build", "first_pass", "iteration", "outer_update", "verification")
 
     def __init__(self, planner: ArmourPlanner, bucket: int, batch: int = 1,
-                 reach: ReachStage | None = None):
+                 reach: ReachStage | None = None, collision_group=None):
         planner = weakref.proxy(planner)     # the planner's cache holds the program
         spec, cfg, dt, dev = planner.spec, planner._cfg, planner.dtype, planner.device
         nf = spec.n_factors
         vec = lambda *shape: torch.zeros((batch, *shape), dtype=dt, device=dev)  # noqa: E731
         self.planner, self.parent, self.device = planner, reach, dev
+        self.collision_group = collision_group
         # the buffers of the plan's arguments that this program reads itself
         # (q0, qd0, qdd0, q_des, zonos, masks, k_rand, k_warm; with a parent
         # the stage holds the first three and the obstacles)
@@ -777,10 +807,13 @@ class PlanProgram:
     def __call__(self, *args, marks: dict | None = None):
         for buf, i in zip(self.inputs, self.take):
             buf.copy_(args[i])
+        q_des, k_rand, k_warm = self.solve_inputs
+        if self.collision_group is not None:
+            broadcast_starts(k_rand, self.collision_group)    # the address the kept steps read
         self.build()
         _mark(marks, "built", self.device)
-        q_des, k_rand, k_warm = self.solve_inputs
-        res = self.planner.solve(self.prob, q_des, k_rand=k_rand, k_warm=k_warm, keep=self.keep)
+        res = self.planner.solve(self.prob, q_des, k_rand=k_rand, k_warm=k_warm, keep=self.keep,
+                                 collision_group=self.collision_group)
         res = tree_map(torch.clone, res)
         _mark(marks, "solved", self.device)
         return res

@@ -1,20 +1,23 @@
 """The (dp, cp) scale-out on several ranks, held against one rank's plan.
 
     python -m armour_tpu_torch.run_sharded [--ranks 4] [--cp 2] [--batch 128]
-        [--time-steps 128] [--dtype float32] [--device cuda] [--timeout 900]
+        [--time-steps 128] [--dtype float32] [--device cuda] [--reps 1]
+        [--timeout 900]
 
 Starts ``--ranks`` processes (``torch.multiprocessing``, spawn), one per
 card, in an NCCL group over a free ``127.0.0.1`` port (gloo with
 ``--device cpu``), and builds the (ranks / cp, cp) mesh.  Every rank makes
 the same ``problem_set`` worlds (seed 0, 8 obstacles, the 8 slots of their
 bucket) and random starts, keeps its dp rows (``scatter_worlds``) and its
-cp slice of the slots (``cp_shard``), and runs ``sharded_plan_step``
-twice: a warm-up and a timed step.  ``gather_summary`` brings every
-world's plan to every rank.  Rank 0 then plans the same worlds with
-``plan_batch`` on its own device, with the same slots and starts, and
-prints one JSON line: the mesh, seconds per step, plans/s, the cp gathers
-and main-kernel launches of the timed step, the summary gather's seconds,
-and the largest ``|k_sharded - k_plan_batch|``.  It exits 1 when
+cp slice of the slots (``cp_shard``), and runs ``sharded_plan_step``, kept
+per shape: its first call (which captures on a card) and ``--reps``
+replays, each timed.  ``gather_summary`` brings every world's plan to
+every rank.  Rank 0 then plans the same worlds with ``plan_batch`` on its
+own device, with the same slots and starts, and prints one JSON line: the
+mesh, the first call's and each replay's seconds, seconds per step (the
+mean replay) and plans/s, the cp gathers and main-kernel launches of the
+last replay, the summary gather's seconds, and the largest
+``|k_sharded - k_plan_batch|``.  It exits 1 when
 ``feasible`` differs or a ``k`` differs by more than 2e-6 (the JAX
 scale-out test's tolerance), and kills the ranks and fails when they have
 not ended within ``--timeout`` seconds.  On the CPU (a rehearsal at a
@@ -101,15 +104,17 @@ def _rank(rank, args, port, out_path):
             args.batch, torch.Generator(device=dev).manual_seed(0)).cpu()
         q0, qd0, qdd0, q_des, k_local = scatter_worlds(mesh, p.q0, p.qd0, p.qdd0, p.q_des, k_rand)
         z_local, m_local = (cp_shard(mesh, x) for x in scatter_worlds(mesh, zonos, masks))
-        run = lambda: step(q0, qd0, qdd0, q_des, z_local, m_local, k_rand=k_local)  # noqa: E731
-        run()
-        _sync(dev)
-        kernels.reset_launch_counts()
-        gather_obstacles.calls = 0
-        t0 = time.perf_counter()
-        res = run()
-        _sync(dev)
-        step_s = time.perf_counter() - t0
+        times = []
+        for _ in range(1 + args.reps):      # the first call, then the replays
+            _sync(dev)
+            kernels.reset_launch_counts()
+            gather_obstacles.calls = 0
+            t0 = time.perf_counter()
+            res = step(q0, qd0, qdd0, q_des, z_local, m_local, k_rand=k_local)
+            _sync(dev)
+            times.append(time.perf_counter() - t0)
+        first_s, replay_s = times[0], times[1:]
+        step_s = sum(replay_s) / len(replay_s)
         launches = kernels.launch_counts()["fused_collision_value_jac_multi"]
         cp_gathers = gather_obstacles.calls
         t0 = time.perf_counter()
@@ -124,7 +129,8 @@ def _rank(rank, args, port, out_path):
         out = {"backend": dist.get_backend(), "ranks": args.ranks,
                "mesh": {"dp": mesh.size(0), "cp": mesh.size(1)}, "batch": args.batch,
                "T": args.time_steps, "dtype": args.dtype, "obstacle_slots": slots,
-               "slots_per_rank": int(m_local.shape[1]), "seconds_per_step": step_s,
+               "slots_per_rank": int(m_local.shape[1]), "first_call_s": first_s,
+               "replay_s": replay_s, "seconds_per_step": step_s,
                "plans_per_s": args.batch / step_s, "cp_gathers_per_step": cp_gathers,
                "main_kernel_launches_rank0": launches, "summary_gather_s": gather_s,
                "feasible_fraction": float(got["feasible"].mean()),
@@ -150,8 +156,11 @@ def main(argv=None) -> int:
     ap.add_argument("--time-steps", type=int, default=128)
     ap.add_argument("--dtype", default="float32", choices=("float32", "float64"))
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--reps", type=int, default=1, help="replays timed after the first call")
     ap.add_argument("--timeout", type=float, default=900.0)
     args = ap.parse_args(argv)
+    if args.reps < 1:
+        ap.error("--reps: at least one replay")
     if args.device == "cuda" and torch.cuda.device_count() < args.ranks:
         print(f"run_sharded: {args.ranks} ranks need as many cards, "
               f"{torch.cuda.device_count()} found", file=sys.stderr)

@@ -67,9 +67,14 @@ Phases (each prints one JSON line; any failure exits non-zero):
               around Q_SI each, T=32, f64; some plan of each must be feasible
 10. scale_out
               sharded_plan_step on an in-process NCCL group of one rank, mesh
-              (1, 1), against plan_batch on the 8obs worlds' 8 slots; then the
-              local bank pass of a cp = 2 rank (4 of 8 slots, 20 of 40) through
-              the step, with the main kernel against its plain version there
+              (1, 1), kept per (B, shard capacity) as the planner's full-width
+              plan program: its first call (captures) and 5 replays, each
+              equal to step(eager=True) to the bit in every field with equal
+              launches, and k within 1e-6 of plan_batch on the 8obs worlds'
+              8 slots; then the local bank pass of a cp = 2 rank (4 of 8
+              slots, 20 of 40) through the same step, a program each (first
+              call and a replay), 0 evictions, with the main kernel against
+              its plain version there
 10b. guidance
               the guidance's kept programs (the JAX package's compiled helpers
               of the battery's host guidance) against the same functions op
@@ -742,17 +747,12 @@ def extension_phases(torch, dev, check_and_time, rows, probs8, probs40, T=128, T
     reads them just after.  Returns the names of the kernel rows it added.
     ``dev``, ``T`` and the batch of ``probs8`` exist to rehearse the phases
     at a small size on the CPU."""
-    import socket
     import warnings
-
-    import torch.distributed as dist
 
     from armour_tpu_torch.collision import kernels
     from armour_tpu_torch.collision.zonotope import ObstacleSet, collision_values_multi, kernel_layout
     from armour_tpu_torch.config import PlannerConfig
-    from armour_tpu_torch.parallel.mesh import cp_shard, make_planner_mesh, sharded_plan_step
-    from armour_tpu_torch.parallel.multihost import gather_summary, init_distributed, scatter_worlds
-    from armour_tpu_torch.planner.armour import ArmourPlanner, gather_obstacles, obstacle_bucket
+    from armour_tpu_torch.planner.armour import ArmourPlanner
     from armour_tpu_torch.planner.rotatotope import rotatotope_planner, self_intersection_values_multi
     from armour_tpu_torch.problems import problem_set
     from armour_tpu_torch.robots.kinova import kinova_gen3_spec
@@ -920,6 +920,36 @@ def extension_phases(torch, dev, check_and_time, rows, probs8, probs40, T=128, T
     del planners, probs4
 
     # ---- 10. scale_out: sharded_plan_step on a group of one rank ----------
+    scale_out_phase(torch, dev, probs8, probs40, timed, kernel_row, T=T)
+    return added
+
+
+def scale_out_phase(torch, dev, probs8, probs40, timed, kernel_row, T=128):
+    """Phase 10: the sharded step on an in-process process group of one
+    rank (NCCL on the card, gloo on the CPU), kept per (B, shard capacity),
+    against its eager run and ``plan_batch``; then a cp = 2 rank's shards
+    through the same step.  ``timed(label, planner, fn, warm)`` and
+    ``kernel_row(name, planner, args, launches, seed)`` are
+    ``extension_phases``'s; ``dev``, ``T`` and the batch of ``probs8``
+    exist to rehearse the phase at a small size on the CPU."""
+    import socket
+
+    import torch.distributed as dist
+
+    from armour_tpu_torch.config import PlannerConfig
+    from armour_tpu_torch.parallel.mesh import cp_shard, make_planner_mesh, sharded_plan_step
+    from armour_tpu_torch.parallel.multihost import gather_summary, init_distributed, scatter_worlds
+    from armour_tpu_torch.planner.armour import ArmourPlanner, PlanProgram, gather_obstacles, obstacle_bucket
+    from armour_tpu_torch.robots.kinova import kinova_gen3_spec
+    from armour_tpu_torch.utils.graphs import CapturedStep
+
+    spec = kinova_gen3_spec()
+    cfg = PlannerConfig(num_time_steps=T)
+    B = probs8.q0.shape[0]
+    f32, f64 = torch.float32, torch.float64
+    main_name = "fused_collision_value_jac_multi"
+    on_card = torch.device(dev).type == "cuda"
+    args8 = (probs8.q0, probs8.qd0, probs8.qdd0, probs8.q_des, probs8.zonos, probs8.masks)
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
@@ -932,14 +962,49 @@ def extension_phases(torch, dev, check_and_time, rows, probs8, probs40, T=128, T
         b8 = obstacle_bucket(probs8.masks)
         args_b8 = (*args8[:4], probs8.zonos[:, :b8], probs8.masks[:, :b8])
         step = sharded_plan_step(spec, cfg, mesh, f32)
+        progs = step.planner.batch_programs
         gen = torch.Generator(device=dev).manual_seed(4)
         k_rand = step.planner.random_starts(B, gen)
         local = scatter_worlds(mesh, *(x for x in args8[:4]), k_rand)
         zonos, masks = cp_shard(mesh, args_b8[4]), cp_shard(mesh, args_b8[5])
+        fields = ("k", "feasible", "cost", "max_violation", "torque_radius")
+
+        def bits_equal(a, b):
+            """Every field equal to the bit (NaN rows too)."""
+            view = {f32: torch.int32, f64: torch.int64}
+            return all(torch.equal(*(x.view(view[x.dtype]) if x.dtype in view else x
+                                     for x in (getattr(a, f), getattr(b, f)))) for f in fields)
+
+        def per_key(key, hits_before):
+            """Graphs captured by the program of ``key`` and its hits."""
+            return {"graphs": sum(isinstance(st, CapturedStep) and st.graph is not None
+                                  for st in progs.entries[key].steps),
+                    "hits": progs.hits - hits_before}
+
+        # the kept step: its first call (captures on the card), then replays,
+        # each one the timed main path (counts reset before, read after)
+        run_step = lambda eager=False: step(*local[:4], zonos, masks, k_rand=local[4],  # noqa: E731
+                                            eager=eager)
         gather_obstacles.calls = 0
-        res_s, sec_s, counts_s = timed("scale_out", step.planner,
-                                       lambda: step(*local[:4], zonos, masks, k_rand=local[4]))
+        res_first, first_s, counts_first = timed("scale_out first call", step.planner, run_step,
+                                                 warm=False)
+        key8 = (B, b8)
+        assert progs.misses == 1 and key8 in progs.entries, progs.stats()
+        hits0 = progs.hits
+        replays, replay_s = [], []
+        for _ in range(5):
+            res_s, sec, counts_s = timed("scale_out", step.planner, run_step, warm=False)
+            replays.append(res_s)
+            replay_s.append(sec)
         cp_gathers = gather_obstacles.calls
+        res_e, eager_s, counts_e = timed("scale_out eager", step.planner,
+                                         lambda: run_step(eager=True), warm=False)
+        assert counts_s == counts_e == counts_first, (counts_s, counts_e, counts_first)
+        assert all(bits_equal(r, res_e) for r in (res_first, *replays)), \
+            "scale_out: the kept step differs from step(eager=True)"
+        programs = {str(key8): per_key(key8, hits0)}
+        assert programs[str(key8)]["hits"] == 5 and progs.misses == 1, progs.stats()
+        sec_s = statistics.median(replay_s)
         t1 = time.perf_counter()
         summary = gather_summary({"k": res_s.k, "feasible": res_s.feasible}, mesh)
         gather_s = time.perf_counter() - t1
@@ -952,19 +1017,36 @@ def extension_phases(torch, dev, check_and_time, rows, probs8, probs40, T=128, T
         assert np.array_equal(np.isnan(summary["k"]), np.isnan(res_u.k.cpu().numpy()))
         assert k_diff <= 1e-6, f"scale_out: |k_sharded - k_plan_batch| = {k_diff}"
         # the local bank pass a cp = 2 rank makes: half of the 8 slots, and
-        # 20 of the 40 of the 40-obstacle worlds, planned through the step
+        # 20 of the 40 of the 40-obstacle worlds, planned through the same
+        # step: a program of their own each (first call, then a replay)
         shard_runs = {}
         for label, probs, cap in (("O=4", probs8, b8 // 2), ("O=20", probs40, probs40.masks.shape[1] // 2)):
             a = (probs.q0, probs.qd0, probs.qdd0, probs.q_des, probs.zonos[:, :cap], probs.masks[:, :cap])
+            hits_c = progs.hits
             res_c, sec_c, counts_c = timed(f"scale_out {label}", step.planner,
                                            lambda a=a: step(*a, k_rand=k_rand), warm=False)
-            shard_runs[label] = {"slots": cap, "seconds": sec_c, "plans_per_s": B / sec_c,
+            res_r, sec_r, counts_r = timed(f"scale_out {label} replay", step.planner,
+                                           lambda a=a: step(*a, k_rand=k_rand), warm=False)
+            assert counts_r == counts_c and bits_equal(res_r, res_c), f"scale_out {label}: replay differs"
+            programs[str((B, cap))] = per_key((B, cap), hits_c)
+            shard_runs[label] = {"slots": cap, "first_call_s": sec_c, "replay_s": sec_r,
+                                 "plans_per_s": B / sec_r,
                                  "feasible_fraction": float(res_c.feasible.float().mean()),
-                                 "launches": counts_c}
+                                 "launches": counts_r}
             kernel_row(f"{main_name}[{label}]", unsharded, a, counts_c[main_name], seed=30 + cap)
+        stats = progs.stats()
+        assert stats["evictions"] == 0 and stats["misses"] == 3 and stats["entries"] == 3, stats
+        assert all(p["hits"] == (5 if k == str(key8) else 1) for k, p in programs.items()), programs
+        if on_card:   # five graphs per program, each captured at its key's first call only
+            assert all(p["graphs"] == len(PlanProgram.STEPS) for p in programs.values()), programs
+            assert stats["captures"] == 3 * len(PlanProgram.STEPS), stats
         emit({"phase": "scale_out", "backend": dist.get_backend(), "world": list(world),
               "mesh": {"dp": mesh.size(0), "cp": mesh.size(1)}, "batch": B, "T": T, "dtype": "float32",
-              "obstacle_slots": b8, "init_s": init_s, "seconds_per_step": sec_s, "plans_per_s": B / sec_s,
+              "obstacle_slots": b8, "init_s": init_s, "first_call_s": first_s,
+              "replay_s": replay_s, "seconds_per_step": sec_s, "plans_per_s": B / sec_s,
+              "eager_seconds_per_step": eager_s, "kept_equal_eager_bits": True,
+              "kept_fields": list(fields), "launches_equal_eager": True,
+              "programs": programs, "program_stats": stats,
               "plan_batch_seconds": sec_u, "feasible_fraction": float(f_u.mean()),
               "feasible_equal": True, "max_abs_k_diff": k_diff, "atol": 1e-6,
               "launches_per_step": counts_s, "cp_gathers": cp_gathers,
@@ -974,7 +1056,6 @@ def extension_phases(torch, dev, check_and_time, rows, probs8, probs40, T=128, T
                       "cp > 1 are covered by the gloo tests on the CPU (tests/test_torch_parallel.py)"})
     finally:
         dist.destroy_process_group()
-    return added
 
 
 def tool_phases(torch, dev, check_and_time, rows, out_dir):
@@ -1576,8 +1657,8 @@ def comparison_phases(torch, dev, out_dir, cmp_argv=(), scaling_argv=("--product
     seconds = time.perf_counter() - t0
     assert table["rows"] and all(set(r) == row_keys for r in table["rows"]), table["rows"]
     emit({"phase": "bench_scaling", "seconds": seconds, "rows": table["rows"],
-          "time_steps": table["time_steps"], "row_keys_equal_jax_file": True,
-          "device": table.get("device")})
+          "steps": table.get("steps"), "time_steps": table["time_steps"],
+          "row_keys_equal_jax_file": True, "device": table.get("device")})
 
 
 def sm_clock_hz() -> float:

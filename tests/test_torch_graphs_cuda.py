@@ -1,10 +1,11 @@
 """The CUDA graphs of the solver iteration and of the RK4 step of
 ``rollout_plain``, the kept plan programs, the kept episode steps
 (``EpisodeRunner.run_batch``'s ``EpisodeProgram``, a move captured through
-a ``KeptFunction``) and the guidance's kept programs (the IK, the
+a ``KeptFunction``), the guidance's kept programs (the IK, the
 end-effector positions, the mesh refinement's FK, the configuration and
-optimization waypoints; the battery's stage cache) against the same steps
-run op by op, on the card.
+optimization waypoints; the battery's stage cache) and the kept sharded
+planning step (``sharded_plan_step`` on an in-process NCCL group of one
+rank) against the same steps run op by op, on the card.
 
 Runs only where a CUDA device is present (marker ``cuda``; elsewhere each
 test skips).  This file imports no JAX, so it runs on a machine without it:
@@ -565,6 +566,102 @@ def test_repeated_episodes_at_one_key_hold_no_memory(card):
     for r in readings:
         assert max(r[1:]) <= min(r[1:]) + (1 << 20), r
     assert max(after[1:]) <= after[0] + (1 << 20), after
+
+
+@pytest.fixture(scope="module")
+def one_rank_mesh():
+    """A (1, 1) mesh over an in-process NCCL group of one rank."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run on the card with "
+                    "python -m pytest --noconftest -m cuda tests/test_torch_graphs_cuda.py")
+    import socket
+
+    from armour_tpu_torch.parallel.mesh import make_planner_mesh
+    from armour_tpu_torch.parallel.multihost import init_distributed
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    init_distributed(f"127.0.0.1:{port}", 1, 0, device="cuda")
+    try:
+        yield make_planner_mesh(1)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _step_inputs(seed, cap=8, n_obs=8):
+    """A call of the sharded step: worlds of ``problem_set`` seed ``seed``,
+    their first ``cap`` slots, and starts from numpy seed ``seed``."""
+    p = problem_set(CFG, B, n_obs=n_obs, seed=seed, device="cuda")
+    k_rand = torch.as_tensor(np.random.default_rng(seed).uniform(-0.6, 0.6, (B, 2, 7)),
+                             dtype=torch.float32, device="cuda")
+    return (p.q0, p.qd0, p.qdd0, p.q_des, p.zonos[:, :cap], p.masks[:, :cap]), k_rand
+
+
+def test_kept_sharded_step_equals_eager_over_three_calls(card, one_rank_mesh):
+    """Three calls at one (B, capacity) with other worlds and starts: each
+    equals ``step(eager=True)`` to the bit in every field with the same
+    launches; the first call captures the program's five graphs, the
+    others replay them."""
+    from armour_tpu_torch.parallel.mesh import sharded_plan_step
+    from armour_tpu_torch.planner.armour import PlanProgram
+
+    step = sharded_plan_step(SPEC, CFG, one_rank_mesh, torch.float32)
+    progs = step.planner.batch_programs
+    for i, seed in enumerate((0, 1, 2)):
+        args, k_rand = _step_inputs(seed)
+        out = {}
+        for eager in (False, True):
+            kernels.reset_launch_counts()
+            out[eager] = (step(*args, k_rand=k_rand, eager=eager), kernels.launch_counts())
+            torch.cuda.synchronize()
+        (kept, c_kept), (ref, c_ref) = out[False], out[True]
+        assert c_kept == c_ref == {MAIN: PASSES, "fused_collision_values_multi": 0,
+                                   "fused_collision_value_jac": 0}, i
+        for f in ("k", "feasible", "cost", "max_violation", "torque_radius"):
+            assert _same(getattr(kept, f), getattr(ref, f)), (i, f)
+        stats = progs.stats()
+        assert stats["captures"] == len(PlanProgram.STEPS) and stats["misses"] == 1, (i, stats)
+        assert stats["hits"] == i and stats["entries"] == 1, (i, stats)
+    assert list(progs.entries) == [(B, 8)]
+
+
+def test_kept_sharded_step_holds_no_memory(card, one_rank_mesh):
+    """Ten replays of the kept step allocate nothing that stays."""
+    from armour_tpu_torch.parallel.mesh import sharded_plan_step
+
+    step = sharded_plan_step(SPEC, CFG, one_rank_mesh, torch.float32)
+    calls = [_step_inputs(seed) for seed in (3, 4)]
+    for args, k_rand in calls:
+        step(*args, k_rand=k_rand)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    for i in range(10):
+        args, k_rand = calls[i % 2]
+        step(*args, k_rand=k_rand)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() <= base + (1 << 20), (base, torch.cuda.memory_allocated())
+    assert step.planner.batch_programs.stats()["captures"] == 5
+
+
+def test_sharded_step_keeps_three_shard_capacities_without_eviction(card, one_rank_mesh):
+    """The shard capacities that ``chip_smoke.py`` plans through one step
+    (8 slots, a cp = 2 rank's 4 of 8 and 20 of 40) are three programs of
+    one cache: a second round replays each, with no eviction."""
+    from armour_tpu_torch.parallel.mesh import sharded_plan_step
+
+    step = sharded_plan_step(SPEC, CFG, one_rank_mesh, torch.float32)
+    progs = step.planner.batch_programs
+    calls = [_step_inputs(5, 8), _step_inputs(5, 4), _step_inputs(7, 20, n_obs=40)]
+    first = [step(*args, k_rand=k_rand) for args, k_rand in calls]
+    again = [step(*args, k_rand=k_rand) for args, k_rand in calls]
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert _same(a.k, b.k) and torch.equal(a.feasible, b.feasible)
+    stats = progs.stats()
+    assert stats["evictions"] == 0 and stats["misses"] == 3 and stats["hits"] == 3, stats
+    assert sorted(progs.entries) == [(B, 4), (B, 8), (B, 20)]
+    assert stats["captures"] == 15, stats
 
 
 def test_captured_step_replays_and_counts_what_runs(card):

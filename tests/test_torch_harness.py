@@ -153,8 +153,9 @@ def _record_starts(monkeypatch, planner):
     is given (and returns an infeasible plan: braking)."""
     seen = []
 
-    def solve(prob, q_des, k_rand=None, k_warm=None, generator=None, keep=None):
-        assert k_rand is not None
+    def solve(prob, q_des, k_rand=None, k_warm=None, generator=None, keep=None,
+              collision_group=None):
+        assert k_rand is not None and collision_group is None   # episodes plan unsharded
         seen.append(k_rand.clone())
         return _infeasible(prob)
 

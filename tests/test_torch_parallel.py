@@ -16,6 +16,10 @@ not end within ``JOIN_S`` fails instead of hanging the suite.
 - In smooth collision mode (tau = 1e-3) the same meshes gather the smooth
   bound on every constraint pass and the verification pool's values once,
   and equal the port's unsharded smooth ``plan_batch`` on the same starts.
+- The step is kept per shape (the planner's full-width plan program): its
+  plans equal ``step(eager=True)``'s to the bit in every field, default and
+  smooth, with as many cp gathers; a later call with other poses and
+  starts replays the same program and equals its own eager call.
 - `python -m armour_tpu_torch.run_sharded` (the several-card run) holds
   dp=1 x cp=2 against ``plan_batch`` on the CPU at a tiny size.
 - `scatter_worlds` / `gather_summary` round-trip the worlds in dp order;
@@ -74,8 +78,10 @@ def _inputs():
     k_rand = np.stack([np.asarray(jax.random.uniform(k, (n_rand, 7), jnp.float64, -0.6, 0.6))
                        for k in keys])
     zero = np.zeros((B, 7))
+    rng = np.random.default_rng(1)
     return dict(q0=q0, qd0=zero, qdd0=zero, q_des=q0 + 0.4 * cfg.k_range, zonos=z, masks=m,
-                k_rand=k_rand), keys
+                k_rand=k_rand, q0_2=q0 + rng.uniform(-0.05, 0.05, q0.shape),
+                k_rand_2=rng.uniform(-0.6, 0.6, k_rand.shape)), keys
 
 
 def _free_port():
@@ -194,6 +200,36 @@ def test_sharded_smooth_plan_matches_unsharded(ranks, inputs):
         _assert_same_plans(out["smooth_feasible"], out["smooth_k"], ref, 2e-6)
         np.testing.assert_allclose(out["smooth_max_violation"], ref.max_violation.numpy(),
                                    rtol=0, atol=1e-9)
+
+
+def _bits(a):
+    return a.view(np.int64) if a.dtype == np.float64 else a
+
+
+@pytest.mark.parametrize("case", ["given", "second", "smooth"])
+def test_kept_step_equals_eager_step(ranks, case):
+    """Every rank's plans of the kept step equal those of ``step(eager=True)``
+    on the same inputs to the bit, in every field, with as many cp gathers
+    (g and its Jacobian per constraint pass; smooth mode adds the pool's)."""
+    _, outs = ranks
+    passes = CFG_KW["nlp_outer_iters"] * CFG_KW["nlp_inner_iters"] + 1
+    for out in outs:
+        for f in ("k", "feasible", "cost", "max_violation", "torque_radius"):
+            np.testing.assert_array_equal(_bits(out[f"{case}_kept_{f}"]),
+                                          _bits(out[f"{case}_eager_{f}"]), err_msg=f"{case} {f}")
+        assert int(out[f"{case}_kept_gathers"]) == int(out[f"{case}_eager_gathers"]) == (
+            2 * passes + (case == "smooth"))
+
+
+def test_kept_step_replays_one_program_on_new_inputs(ranks):
+    """The given, the generator's and the second call are one program
+    (one miss, two hits, no eviction), and the second call, with other
+    poses and starts, is not the first call's plan read back."""
+    _, outs = ranks
+    for out in outs:
+        assert out["programs"].tolist() == [1, 2, 0, 1]      # misses, hits, evictions, entries
+        assert not np.array_equal(out["second_kept_k"], out["given_kept_k"], equal_nan=True)
+        assert not np.array_equal(out["second_kept_cost"], out["given_kept_cost"])
 
 
 def test_run_sharded_script_on_gloo(capsys):
