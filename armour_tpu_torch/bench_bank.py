@@ -12,10 +12,15 @@ each other, and timed in turns (tree, others, others reversed, tree).
 
 The bank is the one the planner's main path builds (`problem_set`, B=128,
 T=128, bf16 normals, f32 offsets); the rows are the launches the port makes:
-value + Jacobian at S=4 and S=1, values only at S=4 and at the 10 candidates
-of the verification pool.  One JSON line per row; `bound_ms` is bytes moved
-(each input read once, each output written once) over 3.35 TB/s.  With
-``--ptxas DIR`` the ``-Xptxas -v`` log of every build is written there.
+value + Jacobian at S=4, 1, 8 and 12 (a 12-start plan's), values only at S=4,
+10 (the verification pool), 16 and 26 (a 12-start plan's pool).  A source
+that refuses a row's start count (one from before any S was one launch) is
+left out of that row.  One JSON line per row: ``ms`` times one launch
+between two events (the host work of the launch included), ``graph_ms`` one
+launch of a CUDA graph of 20 (the device alone, as the kept plan programs
+launch it); `bound_ms` is bytes moved (each input read once, each output
+written once) over 3.35 TB/s.  With ``--ptxas DIR`` the ``-Xptxas -v`` log
+of every build is written there.
 """
 
 from __future__ import annotations
@@ -60,6 +65,36 @@ def time_ms(fn, reps: int, warmup: int = 3) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def graph_ms(fn, calls: int = 20, reps: int = 5) -> float:
+    """Device time of one call: ``calls`` calls captured into one CUDA graph,
+    whose replay is timed with CUDA events after a warm-up replay, divided by
+    ``calls``; the median of ``reps`` replays.  No host work falls between the
+    launches, as in a kept program's replay."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    torch.cuda.empty_cache()                  # the graph's private pool goes with it
     return statistics.median(times)
 
 
@@ -111,6 +146,11 @@ def main(argv=None) -> int:
 
     c4, dc4 = starts(S)
     c10, _ = starts(2 * S + 2)
+    S_many = 12
+    c8, dc8 = starts(8)
+    c12, dc12 = starts(S_many)
+    c16, _ = starts(16)
+    c26, _ = starts(2 * S_many + 2)
     bank = (hp.A, hp.dpos, hp.dneg)
     rows = (
         ("value_jac_multi[S=4]", kernels._launch_value_jac_multi, (*bank, c4, dc4)),
@@ -118,11 +158,21 @@ def main(argv=None) -> int:
         ("value_jac[S=1]", kernels._launch_value_jac_multi,
          (*bank, c4[:, :1].contiguous(), dc4[:, :1].contiguous())),
         (f"values_multi[S={2 * S + 2}]", kernels._launch_values_multi, (*bank, c10)),
+        ("value_jac_multi[S=8]", kernels._launch_value_jac_multi, (*bank, c8, dc8)),
+        (f"value_jac_multi[S={S_many}]", kernels._launch_value_jac_multi, (*bank, c12, dc12)),
+        ("values_multi[S=16]", kernels._launch_values_multi, (*bank, c16)),
+        (f"values_multi[S={2 * S_many + 2}]", kernels._launch_values_multi, (*bank, c26)),
     )
-    order = list(libs) + list(libs)[:0:-1] + ["tree"] if len(libs) > 1 else ["tree", "tree"]
     for row, launch, tensors in rows:
-        outs = {name: launch(*tensors, lib=lib) for name, lib in libs.items()}
+        outs, refused = {}, {}
+        for name, lib in libs.items():
+            try:
+                outs[name] = launch(*tensors, lib=lib)
+            except RuntimeError as e:     # an earlier source may refuse the row's start count
+                refused[name] = str(e)
         torch.cuda.synchronize()
+        names = list(outs)
+        order = names + names[:0:-1] + ["tree"] if len(names) > 1 else ["tree", "tree"]
         ref = outs["tree"]
         ref = ref if isinstance(ref, tuple) else (ref,)
         diff = {}
@@ -131,13 +181,16 @@ def main(argv=None) -> int:
             # values must agree to rounding; Jacobians may pick another normal at a tie
             diff[name] = float((out[0] - ref[0]).abs().max())
         moved = sum(t.numel() * t.element_size() for t in (*tensors, *ref))
-        ms = {}
+        ms, in_graph = {}, {}
         for name in order:
             ms.setdefault(name, []).append(
                 time_ms(lambda: launch(*tensors, lib=libs[name]), args.reps))
+            in_graph.setdefault(name, []).append(graph_ms(lambda: launch(*tensors, lib=libs[name])))
         print(json.dumps({"row": row, "card": smi, "bank": list(hp.A.shape), "bytes": moved,
                           "bound_ms": moved / PEAK_BYTES_PER_S * 1e3, "order": order,
-                          "ms": ms, "max_abs_g_diff_to_tree": diff}), flush=True)
+                          "ms": ms, "graph_ms": in_graph, "max_abs_g_diff_to_tree": diff,
+                          "refused": refused}),
+              flush=True)
         del outs, ref
     return 0
 

@@ -14,8 +14,10 @@ tensors go to the plain PyTorch version beside it (the batched form of the
 JAX ``impl="xla"`` pipeline, `zonotope.py:175-185`, `:227-256`); CUDA
 tensors go to the kernel, or the wrapper raises.  There is no fallback.
 Each wrapper counts its kernel launches in ``<wrapper>.launches``.  Any
-number of starts is taken: one launch holds up to 8 with the Jacobian and
-16 without, and more go in chunks, one counted launch each.
+number of starts is one launch, as the Pallas kernels take any S in one
+``pallas_call``: above 4 starts with the Jacobian (16 without) the kernel
+splits them into groups whose blocks run side by side and stream the same
+bank, and each group writes its starts at their own offsets in the outputs.
 
 The kernel (one template, `bank_pass`) streams the bank through shared
 memory with Hopper's bulk asynchronous copies when the slab's rows are
@@ -55,8 +57,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1, torch.float64: 2}
-_MAX_STARTS = 8         # value + Jacobian kernels: starts per launch; more go in chunks
-_MAX_VALUE_STARTS = 16  # values-only kernel: the same
 _START = -1e30  # the running max's start value
 
 
@@ -92,7 +92,8 @@ def tie_mask(A, dpos, dneg, c, tol=1e-5):
     compared only here."""
     vp, vn = pieces(A, dpos, dneg, c)
     bad = torch.isnan(vp) | torch.isnan(vn)              # pairs that never win
-    both = torch.cat([vp.masked_fill(bad, -torch.inf), vn.masked_fill(bad, -torch.inf)], dim=2)
+    both = torch.stack([vp.masked_fill(bad, -torch.inf), vn.masked_fill(bad, -torch.inf)],
+                       dim=2).flatten(2, 3)                # (B, S, 2P, L, O, T)
     top2 = torch.topk(both, 2, dim=2).values
     return (top2[:, :, 0] - top2[:, :, 1]) > tol
 
@@ -222,8 +223,9 @@ def _lib() -> ctypes.CDLL:
 def _raise_on(err: int, name: str):
     if err != 0:
         try:
-            msg = torch.cuda.cudart().cudaGetErrorString(err)
-        except (RuntimeError, AttributeError):
+            rt = torch.cuda.cudart()
+            msg = rt.cudaGetErrorString(rt.cudaError(err))
+        except (RuntimeError, AttributeError, TypeError, ValueError):
             msg = f"cudaError {err}"
         raise RuntimeError(f"{name}: kernel launch failed: {msg}")
 
@@ -303,8 +305,7 @@ def _launch_values_multi(A, dpos, dneg, c, lib=None):
 
 
 def fused_collision_value_jac_multi(A, dpos, dneg, c, dc):
-    """Value + k-Jacobian for S starts in one pass over the bank (up to 8
-    starts; more are split into chunks of 8, one launch each).
+    """Value + k-Jacobian for any S starts in one launch.
 
     A (B,P,3,L,O,T), dpos/dneg (B,P,L,O,T), c (B,S,3,L,T), dc (B,S,n,3,L,T)
     -> g (B,S,L,O,T), J (B,S,n,L,O,T)."""
@@ -315,28 +316,20 @@ def fused_collision_value_jac_multi(A, dpos, dneg, c, dc):
     if _on_cpu(A, dpos, dneg, c, dc):
         return value_jac_multi_plain(A, dpos, dneg, c, dc)
     _check_contiguous(A, dpos, dneg, c, dc)
-    if S > _MAX_STARTS:
-        parts = [fused_collision_value_jac_multi(A, dpos, dneg, c[:, s:s + _MAX_STARTS].contiguous(),
-                                                 dc[:, s:s + _MAX_STARTS].contiguous())
-                 for s in range(0, S, _MAX_STARTS)]
-        return torch.cat([g for g, _ in parts], dim=1), torch.cat([J for _, J in parts], dim=1)
     fused_collision_value_jac_multi.launches += 1
     return _launch_value_jac_multi(A, dpos, dneg, c, dc)
 
 
 def fused_collision_values_multi(A, dpos, dneg, c):
-    """Values only for S starts: c (B,S,3,L,T) -> g (B,S,L,O,T).  Up to 16
-    starts (the planner's verification pool of 2S + 2 candidates) are one
-    pass over the bank; more are split into chunks of 16, one launch each."""
+    """Values only for any S starts in one launch (the planner's
+    verification pool of 2S + 2 candidates among them): c (B,S,3,L,T)
+    -> g (B,S,L,O,T)."""
     B, P, L, O, T = _check_bank(A, dpos, dneg)
     S = c.shape[1]
     _check_starts("c", c, (B, S, 3, L, T), dpos.dtype)
     if _on_cpu(A, dpos, dneg, c):
         return values_multi_plain(A, dpos, dneg, c)
     _check_contiguous(A, dpos, dneg, c)
-    if S > _MAX_VALUE_STARTS:
-        return torch.cat([fused_collision_values_multi(A, dpos, dneg, c[:, s:s + _MAX_VALUE_STARTS].contiguous())
-                          for s in range(0, S, _MAX_VALUE_STARTS)], dim=1)
     fused_collision_values_multi.launches += 1
     return _launch_values_multi(A, dpos, dneg, c)
 

@@ -9,7 +9,8 @@
 //                                        and, at S = 1, fused_collision_value_jac (pallas_kernel.py:30-105)
 //   armour_collision_values_multi     <- fused_collision_values_multi     (pallas_kernel.py:189-237)
 // Both are one kernel template (bank_pass below): the values-only
-// instantiations drop the normals, the sign and the Jacobian epilogue.
+// instantiations drop the normals, the sign and the Jacobian epilogue.  As
+// the Pallas kernels do, each takes any number of starts S in one launch.
 //
 // Semantics, shared with the Pallas kernels, for each (b, l, o, t) slot and
 // start s:  Ac = A.c,  vp = Ac - dpos,  vn = -Ac - dneg,  v = max(vp, vn);
@@ -58,12 +59,27 @@
 //   pallas_kernel.py:109-112).  With the arithmetic taken out the kernel
 //   runs no faster: the instruction stream hides under the copies.
 // * Each thread keeps best[s] and, with the Jacobian, the winning signed
-//   normal of its V obstacles for all starts in registers.  V is the most of
-//   4, 2, 1 whose state stays within 80 registers.  The start count is a
-//   template bound: 1, 4, 8 with the Jacobian; 1, 4, 10 (the verification
-//   pool of 2S + 2 candidates), 16 without.  The pair loop carries no
-//   `s < S` test: starts above S compute on c = 0 and are not stored; more
-//   starts than the largest bound go in chunks (the wrapper).
+//   normal of its V obstacles for a group of starts in registers.  V is the
+//   most of 4, 2, 1 whose state stays within 80 registers.  The group size
+//   is a template bound: 1, 4 with the Jacobian (V = 4); 1, 4, 10 (the
+//   verification pool of 2S + 2 candidates), 16 without.  The pair loop
+//   carries no `s < S` test: starts past the group's last compute on c = 0
+//   and are not stored.
+// * Any S is one launch.  Up to the largest bound a block serves all starts
+//   of its tile.  Above it the starts fall into G = ceil(S / bound) groups,
+//   each as small a bound as holds ceil(S / G) starts; the G blocks of one
+//   tile and its groups are neighbours in the grid (block x = tile * G +
+//   group), so they run at the same time and stream the same pairs: the
+//   first block's copies bring a pair from device memory into L2 and the
+//   others' copies find it there.  Device memory sees the bank about once;
+//   each block writes its starts of g and J at their own offsets in the
+//   full outputs.  A start's arithmetic does not depend on its group, so a
+//   start's g and J are the same bits at any S.  With the Jacobian a group
+//   holds 4 starts: 8 would leave V = 1, whose four times as many small
+//   copies cost more than a second read of the bank from L2 (S = 8: 0.328 ms
+//   as two groups of 4, 0.435 ms as one of 8; S = 12: 0.458 ms as three
+//   groups of 4, 0.703 ms as groups of 8, 0.665 ms with the groups one after
+//   the other in the grid; H100 SXM, `bench_bank`).
 // * The values-only body needs neither the sign nor the normals: three
 //   multiply-adds, two subtractions, one maximum and a NaN-guarded maximum.
 // * Bulk copies need 16-byte alignment of every row: N * sizeof(A's type) a
@@ -191,7 +207,7 @@ template <typename AT, typename OT, int MAXS, bool JAC>
 __global__ void __launch_bounds__(kThreads) bank_pass(
     const AT* __restrict__ A, const OT* __restrict__ dpos, const OT* __restrict__ dneg,
     const OT* __restrict__ c, const OT* __restrict__ dc, OT* __restrict__ g,
-    OT* __restrict__ J, int P, int L, int O, int T, int S, int n, int staged) {
+    OT* __restrict__ J, int P, int L, int O, int T, int S, int n, int groups, int staged) {
   constexpr int V = ObstaclesPerThread<OT, MAXS, JAC>::value;
   constexpr int TILE = kThreads * V;
   constexpr int NJ = JAC ? MAXS : 1;  // no normals are kept without the Jacobian
@@ -200,11 +216,14 @@ __global__ void __launch_bounds__(kThreads) bank_pass(
   constexpr int STAGE = 3 * ROW_A + 2 * ROW_O;
   extern __shared__ __align__(128) unsigned char smem[];  // kStages barriers, then the ring
 
+  // The block's tile and start group: starts s0 .. s0 + SG - 1.
+  const int s0 = (blockIdx.x % groups) * MAXS;
+  const int SG = min(MAXS, S - s0);
   // The thread's item: link l, obstacles og*V .. og*V+V-1, time step t.
   const int tid = threadIdx.x;
   const int OG = (O + V - 1) / V;  // obstacle groups of one link
   const int N = L * O * T;         // slots of one world; the launch checks that it fits an int
-  const int q0 = blockIdx.x * kThreads;
+  const int q0 = (blockIdx.x / groups) * kThreads;
   const int q = q0 + tid;
   const bool live_q = q < L * OG * T;
   const int t = q % T, lg = q / T;
@@ -216,6 +235,7 @@ __global__ void __launch_bounds__(kThreads) bank_pass(
   for (int j = 0; j < V; ++j) live[j] = live_q && og * V + j < O;
   const int64_t LT = (int64_t)L * T;
   const int64_t b = blockIdx.y;
+  const int64_t bs0 = b * S + s0;    // the group's first start in the (B, S) rows of c, dc, g, J
   const AT* Aw = A + b * P * 3 * N;  // the world's bank: row r of A at Aw + r * N
   const OT* Dp = dpos + b * P * N;
   const OT* Dn = dneg + b * P * N;
@@ -259,9 +279,9 @@ __global__ void __launch_bounds__(kThreads) bank_pass(
   for (int s = 0; s < MAXS; ++s) {
 #pragma unroll
     for (int j = 0; j < V; ++j) best[s][j] = static_cast<OT>(-1e30);
-    cx[s] = cy[s] = cz[s] = static_cast<OT>(0);  // starts above S run on c = 0, unstored
-    if (s < S && live_q) {
-      const OT* cs = c + (b * S + s) * 3 * LT + ct;
+    cx[s] = cy[s] = cz[s] = static_cast<OT>(0);  // starts past the group run on c = 0, unstored
+    if (s < SG && live_q) {
+      const OT* cs = c + (bs0 + s) * 3 * LT + ct;
       cx[s] = cs[0];
       cy[s] = cs[LT];
       cz[s] = cs[2 * LT];
@@ -307,8 +327,8 @@ __global__ void __launch_bounds__(kThreads) bank_pass(
 
 #pragma unroll
   for (int s = 0; s < MAXS; ++s) {
-    if (s < S) {
-      const int64_t bs = b * S + s;
+    if (s < SG) {
+      const int64_t bs = bs0 + s;
 #pragma unroll
       for (int j = 0; j < V; ++j)
         if (live[j]) g[bs * N + slot0 + j * T] = -best[s][j];
@@ -335,7 +355,8 @@ inline bool aligned(const void* p, size_t bytes) {
 
 template <typename AT, typename OT, int MAXS, bool JAC>
 int launch_bound(const AT* A, const OT* dpos, const OT* dneg, const OT* c, const OT* dc, OT* g,
-                 OT* J, int B, int P, int L, int O, int T, int S, int n, cudaStream_t stream) {
+                 OT* J, int B, int P, int L, int O, int T, int S, int n, int groups,
+                 cudaStream_t stream) {
   constexpr int V = ObstaclesPerThread<OT, MAXS, JAC>::value;
   constexpr int TILE = kThreads * V;
   constexpr int SMEM = 128 + kStages * TILE * static_cast<int>(3 * sizeof(AT) + 2 * sizeof(OT));
@@ -352,8 +373,11 @@ int launch_bound(const AT* A, const OT* dpos, const OT* dneg, const OT* c, const
     if (err != cudaSuccess) return (int)err;
   }
   const int64_t items = (int64_t)L * ((O + V - 1) / V) * T;
-  const dim3 grid((unsigned)((items + kThreads - 1) / kThreads), B);
-  kernel<<<grid, kThreads, SMEM, stream>>>(A, dpos, dneg, c, dc, g, J, P, L, O, T, S, n, staged);
+  const int64_t blocks = (items + kThreads - 1) / kThreads * groups;
+  if (blocks > INT32_MAX) return (int)cudaErrorInvalidConfiguration;
+  const dim3 grid((unsigned)blocks, B);
+  kernel<<<grid, kThreads, SMEM, stream>>>(A, dpos, dneg, c, dc, g, J, P, L, O, T, S, n, groups,
+                                           staged);
   return (int)cudaGetLastError();
 }
 
@@ -372,18 +396,20 @@ int launch(const void* A, const void* dpos, const void* dneg, const void* c, con
   const OT* dd = static_cast<const OT*>(dc);
   OT* gg = static_cast<OT*>(g);
   OT* jj = static_cast<OT*>(J);
+  // the fewest start groups, then the smallest bound that holds a group
+  constexpr int most = JAC ? 4 : 16;
+  const int groups = (S + most - 1) / most;
+  const int per_group = (S + groups - 1) / groups;
 #define BANK_LAUNCH(BOUND) \
-  return launch_bound<AT, OT, BOUND, JAC>(a, p, m, cc, dd, gg, jj, B, P, L, O, T, S, n, stream)
-  if (S <= 1) BANK_LAUNCH(1);
-  if (S <= 4) BANK_LAUNCH(4);
-  if constexpr (JAC) {
-    if (S <= 8) BANK_LAUNCH(8);
-  } else {
-    if (S <= 10) BANK_LAUNCH(10);
-    if (S <= 16) BANK_LAUNCH(16);
+  return launch_bound<AT, OT, BOUND, JAC>(a, p, m, cc, dd, gg, jj, B, P, L, O, T, S, n, groups, \
+                                          stream)
+  if (per_group <= 1) BANK_LAUNCH(1);
+  if (per_group <= 4) BANK_LAUNCH(4);
+  if constexpr (!JAC) {
+    if (per_group <= 10) BANK_LAUNCH(10);
   }
+  BANK_LAUNCH(most);
 #undef BANK_LAUNCH
-  return (int)cudaErrorInvalidValue;  // more starts than one launch takes: the caller chunks
 }
 
 // dtype codes: 0 = bfloat16, 1 = float32, 2 = float64.  A is stored in a
@@ -413,7 +439,7 @@ int dispatch(const void* A, int a_dtype, const void* dpos, const void* dneg, int
 
 extern "C" {
 
-// Value + k-Jacobian for S <= 8 starts in one bank pass (more: invalid value).
+// Value + k-Jacobian for any S >= 1 starts in one launch.
 int armour_collision_value_jac_multi(const void* A, int a_dtype, const void* dpos,
                                      const void* dneg, int o_dtype, const void* c,
                                      const void* dc, void* g, void* J, int B, int P, int L,
@@ -422,7 +448,7 @@ int armour_collision_value_jac_multi(const void* A, int a_dtype, const void* dpo
                         stream);
 }
 
-// Values only for S <= 16 starts in one bank pass (more: invalid value).
+// Values only for any S >= 1 starts in one launch.
 int armour_collision_values_multi(const void* A, int a_dtype, const void* dpos,
                                   const void* dneg, int o_dtype, const void* c, void* g, int B,
                                   int P, int L, int O, int T, int S, void* stream) {

@@ -12,11 +12,15 @@ Phases (each prints one JSON line; any failure exits non-zero):
               version on a bank built by the planner's own main path
               (seed 0, B=128, T=128, bucket 8, bf16 A; then an f64 bank),
               with CUDA-event times, bytes moved and the memory/compute bound;
-              the values-only kernel also at the 10 candidates of the
-              smooth-mode verification pool, the value + Jacobian kernel also
-              at 12 starts (two launches) and on the 40-obstacle bank
-              (bucket 16); then small random banks at T=32 (staged path) and
-              at a slab whose rows are not 16-byte aligned (direct path)
+              and, for every timed row, the device time of 20 calls
+              replayed from one CUDA graph; the values-only kernel also at
+              the 10 candidates of the smooth-mode verification pool and at
+              the 26 of a 12-start plan's pool, the value + Jacobian kernel
+              also at 12 starts (one launch of three start groups, held to the
+              bit against launches at 8 and at 4 starts) and on the
+              40-obstacle bank (bucket 16); then small random banks at T=32
+              (staged path) and at a slab whose rows are not 16-byte aligned
+              (direct path, 9 starts: one launch)
  3b. rollout_kernel
               the rollout kernel (csrc/rollout.cu: the whole move in one
               launch, one block of eight warps per world) against
@@ -39,8 +43,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
               kernel on the batch-1 bank; then the collision check of the
               returned plans (values_multi and single-start value_jac)
   5. modes    one plan_batch at the same width for traj_type="orig", with
-              12 starts, for smooth collision (tau = 1e-3) and with grasp
-              constraints
+              12 starts (one launch per pass), for smooth collision (tau =
+              1e-3; also at 12 starts, a pool of 26: one launch) and with
+              grasp constraints
   6. track    the closed-loop move of the 128 plans of phase 4: robust
               controller, RK4 plant at 5e-4 s, 1,000 steps, all worlds at once,
               ONE launch of the rollout kernel: ms per move, device idle share;
@@ -1329,7 +1334,7 @@ def graph_phases(torch, dev, probs8, probs40, out_dir, T=128):
         ("40obs", ArmourPlanner(spec, cfg, f32, device=dev), args40, {main_name: passes}),
         ("orig", ArmourPlanner(spec, cfg, f32, device=dev, traj_type="orig"), args8, {main_name: passes}),
         ("12starts", ArmourPlanner(spec, dataclasses.replace(cfg, nlp_num_starts=12), f32, device=dev),
-         args8, {main_name: 2 * passes}),
+         args8, {main_name: passes}),
         ("smooth", ArmourPlanner(spec, dataclasses.replace(cfg, smooth_collision_tau=1e-3), f32,
                                  device=dev), args8, {"fused_collision_values_multi": 1}),
         ("grasp", ArmourPlanner(spec, cfg, f32, device=dev, grasp=grasp), args_g, {main_name: passes}),
@@ -1708,6 +1713,7 @@ def rollout_phase(torch, dev, rows, peak_bw, peak_f32, B=128, steps=200, move_st
     to the plain version).  ``ptxas_rows`` (the build's per-instantiation
     registers, spills and shared memory) go into the row.  Fills
     ``rows["fused_rollout"]``."""
+    from armour_tpu_torch.bench_bank import graph_ms
     from armour_tpu_torch.config import PlannerConfig, SimConfig
     from armour_tpu_torch.planner.armour import wrap_to_pi
     from armour_tpu_torch.robots.kinova import kinova_gen3_spec
@@ -1784,7 +1790,12 @@ def rollout_phase(torch, dev, rows, peak_bw, peak_f32, B=128, steps=200, move_st
     plain_ms = time_ms(torch, lambda: rollout_plain(kinova, *args, **kw), reps=3, warmup=1)
     sim, q0, qd0, traj, true = args
     on = lambda x: torch.as_tensor(x, dtype=f32, device=dev)  # noqa: E731
-    packed = rk.pack(kinova, on(q0), on(qd0), TrajParams(*map(on, traj)), TrueParams(*map(on, true)))
+    # the device alone: 20 moves from one CUDA graph (inputs on the card, as
+    # the kept move-and-check stage holds them); the plain version keeps its
+    # own graph of the step and cannot be captured inside another
+    on_args = (sim, on(q0), on(qd0), TrajParams(*map(on, traj)), TrueParams(*map(on, true)))
+    in_graph_ms = graph_ms(lambda: rollout(kinova, *on_args, **kw), reps=3)
+    packed = rk.pack(kinova, *on_args[1:])
     moved = nbytes(packed.spec, packed.ispec, packed.world, noise, got[0], got[1], *got[2][1:])
     ops = rk.operation_count(kinova, "robust", "bernstein", move_steps, B)
     b_mem, b_ops = moved / peak_bw * 1e3, ops / peak_f32 * 1e3
@@ -1810,7 +1821,8 @@ def rollout_phase(torch, dev, rows, peak_bw, peak_f32, B=128, steps=200, move_st
         "name": "fused_rollout", "wrapper": "fused_rollout", "route": "cuda",
         "source": "armour_tpu_torch/csrc/rollout.cu", "replaces": "armour_tpu/sim/agent.py:236",
         "launches": None, "max_abs_err_float32": max(v for k, v in e.items() if not k.endswith("_rel")),
-        "ms": ms, "plain_ms": plain_ms, "bytes": moved, "ops": ops,
+        "ms": ms, "plain_ms": plain_ms, "graph_ms": in_graph_ms, "plain_graph_ms": None,
+        "bytes": moved, "ops": ops,
         "bound_ms": max(b_mem, b_ops), "bound_by": "bytes" if b_mem >= b_ops else "operations",
         "library_ms": None, "chain_bound_ms": chain_ms,
         "shapes": {"B": B, "steps": move_steps, "nf": kinova.n_factors},
@@ -1819,7 +1831,8 @@ def rollout_phase(torch, dev, rows, peak_bw, peak_f32, B=128, steps=200, move_st
     }
     emit({"phase": "rollout_kernel", "move": "robust, bernstein, float32, with noise", "worlds": B,
           "steps": move_steps, "launches": launches, "errors": e, "ms_per_move": ms,
-          "plain_graph_ms_per_move": plain_ms, "bytes": moved, "ops": ops,
+          "ms_per_move_in_graph": in_graph_ms, "plain_graph_ms_per_move": plain_ms,
+          "bytes": moved, "ops": ops,
           "bound_ms": rows["fused_rollout"]["bound_ms"], "bound_by": rows["fused_rollout"]["bound_by"],
           "chain_bound_ms": chain_ms, "sm_clock_hz": clock,
           "dependent_ops_per_step": rk.dependent_ops_per_step(kinova),
@@ -1839,6 +1852,7 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: the armour_tpu_torch package is missing ({e})", file=sys.stderr)
         return 2
+    from armour_tpu_torch.bench_bank import graph_ms
     from armour_tpu_torch.collision import kernels
     from armour_tpu_torch.collision.zonotope import (
         BufferedHyperplanes,
@@ -1913,11 +1927,15 @@ def main() -> int:
     S_pool = 2 * S + 2   # the smooth-mode verification pool: ONE values-only launch
     K_pool_np = np.random.default_rng(3).uniform(-0.9, 0.9, (B, S_pool, n))
     pool_name = f"fused_collision_values_multi[S={S_pool}]"
-    S_many = 12          # more starts than one value + Jacobian launch takes: two launches
+    S_many = 12          # more starts than one start group of the kernel holds: still one launch
     K_many_np = np.random.default_rng(5).uniform(-0.9, 0.9, (B, S_many, n))
     many_name = f"fused_collision_value_jac_multi[S={S_many}]"
+    S_many_pool = 2 * S_many + 2   # a 12-start plan's smooth-mode pool: one values-only launch
+    K_many_pool_np = np.random.default_rng(6).uniform(-0.9, 0.9, (B, S_many_pool, n))
+    many_pool_name = f"fused_collision_values_multi[S={S_many_pool}]"
     wide_name = "fused_collision_value_jac_multi[O=16]"   # the 40-obstacle bank
     rows = {}
+    zero_counts = {k.__name__: 0 for k in kernels.KERNELS}
 
     def check_and_time(hp, dtype, tol, kern, args, jac, uniq, name, timed, table=rows):
         """Hold kern(*args) against its plain version (Jacobians on the slots
@@ -1963,13 +1981,40 @@ def main() -> int:
             "source": "armour_tpu_torch/csrc/collision_bank.cu",
             "ms": time_ms(torch, lambda: kern(*args)),
             "plain_ms": time_ms(torch, lambda: plain(*args), reps=20, warmup=2),
+            # the device alone: 20 calls in one CUDA graph, as a kept program replays them
+            "graph_ms": graph_ms(lambda: kern(*args)),
+            "plain_graph_ms": graph_ms(lambda: plain(*args), reps=3),
             "bytes": moved, "ops": ops,
             "bound_ms": max(b_mem, b_ops), "bound_by": "bytes" if b_mem >= b_ops else "operations",
             "library_ms": None,
             "shapes": {"B": Bk, "S": Sx, "n": nk, "P": P, "L": L, "O": O, "T": T},
         })
         emit({"phase": "kernel_time", **{k: row[k] for k in
-              ("name", "ms", "plain_ms", "bytes", "bound_ms", "bound_by", "shapes")}})
+              ("name", "ms", "plain_ms", "graph_ms", "plain_graph_ms", "bytes", "bound_ms",
+               "bound_by", "shapes")}})
+
+    def grouping_check(dtype, tol, args, g, J, split):
+        """One launch at S starts against two launches of the same kernel,
+        at the first ``split`` starts and at the rest: a start's g and J do
+        not depend on the starts beside it, so they should be the same bits;
+        any slot that differs is printed, and must lie within ``tol``."""
+        A, dpos, dneg, c, dc = args
+        parts = [kernels.fused_collision_value_jac_multi(A, dpos, dneg, c[:, sl].contiguous(),
+                                                         dc[:, sl].contiguous())
+                 for sl in (slice(0, split), slice(split, None))]
+        torch.cuda.synchronize()
+        out = {"phase": "kernel_grouping", "dtype": str(dtype)[6:], "S": c.shape[1],
+               "starts_per_launch": [split, c.shape[1] - split]}
+        for i, label in enumerate(("g", "J")):
+            one, two = (g, J)[i], torch.cat([parts[0][i], parts[1][i]], dim=1)
+            differ = one != two
+            out[label] = {"slots_differing": int(differ.sum()),
+                          "max_abs_diff": float((one - two).abs().max()),
+                          "first_differing": differ.nonzero()[:10].tolist()}
+            assert out[label]["max_abs_diff"] <= tol, \
+                f"S={c.shape[1]}: one launch against {split} + the rest: {label} {out[label]}"
+        out["bits_equal"] = out["g"]["slots_differing"] == 0 and out["J"]["slots_differing"] == 0
+        emit(out)
 
     for dtype, tol in ((torch.float32, 2e-6), (torch.float64, 1e-12)):
         planner = ArmourPlanner(spec, cfg, dtype=dtype, device=dev)
@@ -1993,17 +2038,27 @@ def main() -> int:
         for kern, args, jac, uniq, row_name in cases:
             check_and_time(hp, dtype, tol, kern, args, jac, uniq, row_name or kern.__name__,
                            timed=dtype == torch.float32)
-        # more starts than one launch takes: chunks of 8, one counted launch each
+        # more starts than one start group holds (4 with the Jacobian, 16
+        # without): ONE launch, each group's blocks writing at their offsets
         c_many, dc_many = kernel_layout(*prob.links.slice_with_jac_multi(
             torch.as_tensor(K_many_np, dtype=dtype, device=dev))[::2])
         many = (hp.A, hp.dpos, hp.dneg, c_many, dc_many)
         kernels.reset_launch_counts()
-        kernels.fused_collision_value_jac_multi(*many)
-        assert kernels.launch_counts()["fused_collision_value_jac_multi"] == 2
+        g_many, J_many = kernels.fused_collision_value_jac_multi(*many)
+        assert kernels.launch_counts()["fused_collision_value_jac_multi"] == 1
         check_and_time(hp, dtype, tol, kernels.fused_collision_value_jac_multi, many, True,
                        kernels.tie_mask(hp.A, hp.dpos, hp.dneg, c_many, tol=1e-5), many_name,
                        timed=dtype == torch.float32)
-        del many, c_many, dc_many
+        grouping_check(dtype, tol, many, g_many, J_many, split=8)
+        c_many_pool = kernel_layout(prob.links.slice_with_jac_multi(
+            torch.as_tensor(K_many_pool_np, dtype=dtype, device=dev))[0])
+        kernels.reset_launch_counts()
+        kernels.fused_collision_values_multi(hp.A, hp.dpos, hp.dneg, c_many_pool)
+        assert kernels.launch_counts()["fused_collision_values_multi"] == 1
+        check_and_time(hp, dtype, tol, kernels.fused_collision_values_multi,
+                       (hp.A, hp.dpos, hp.dneg, c_many_pool), False, unique, many_pool_name,
+                       timed=dtype == torch.float32)
+        del many, c_many, dc_many, g_many, J_many, c_many_pool
         del planner, prob, hp, c, dc, c_pool, centers, dcenters, unique
         torch.cuda.empty_cache()
     # the 40-obstacle bank (seed 7: culled and compacted to bucket 16) through the main kernel
@@ -2021,7 +2076,7 @@ def main() -> int:
 
     # small random banks: a short time axis (T=32, staged like the main shapes)
     # and a slab whose rows are not 16-byte aligned (O*T = 99: the direct path
-    # inside the kernel), the second with 9 starts (two launches)
+    # inside the kernel), the second with 9 starts (three start groups, one launch)
     small = {}
     for label, (Bs, Ss, L, O, T) in (("staged_T32", (4, 4, 7, 8, 32)), ("direct_O3_T33", (4, 9, 7, 3, 33))):
         gen = torch.Generator(device=dev).manual_seed(11)
@@ -2035,12 +2090,16 @@ def main() -> int:
                                  torch.ones((Bs, O), dtype=torch.bool, device=dev))
         c, dc = randn(Bs, Ss, 3, L, T), randn(Bs, Ss, n, 3, L, T)
         uniq = kernels.tie_mask(hp.A, hp.dpos, hp.dneg, c, tol=1e-5)
+        kernels.reset_launch_counts()
         check_and_time(hp, torch.float32, 2e-6, kernels.fused_collision_value_jac_multi,
                        (hp.A, hp.dpos, hp.dneg, c, dc), True, uniq, f"value_jac_multi[{label}]",
                        timed=False, table=small)
         check_and_time(hp, torch.float32, 2e-6, kernels.fused_collision_values_multi,
                        (hp.A, hp.dpos, hp.dneg, c), False, uniq, f"values_multi[{label}]",
                        timed=False, table=small)
+        assert kernels.launch_counts() == dict(zero_counts, fused_collision_value_jac_multi=1,
+                                               fused_collision_values_multi=1), \
+            f"{label}: {kernels.launch_counts()}"
     del hp, A, c, dc, uniq
 
     # ---- 3b. the rollout kernel against its plain version ---------------
@@ -2052,6 +2111,7 @@ def main() -> int:
     rows[wide_name]["replaces"] = "armour_tpu/collision/pallas_kernel.py:166"
     rows["fused_collision_values_multi"]["replaces"] = "armour_tpu/collision/pallas_kernel.py:225"
     rows[pool_name]["replaces"] = "armour_tpu/collision/pallas_kernel.py:225"
+    rows[many_pool_name]["replaces"] = "armour_tpu/collision/pallas_kernel.py:225"
     rows["fused_collision_value_jac"]["replaces"] = "armour_tpu/collision/pallas_kernel.py:85"
 
     # ---- 4. main path ----------------------------------------------------
@@ -2141,8 +2201,6 @@ def main() -> int:
 
 
     # ---- 5. the other planner modes at full width --------------------------
-    zero_counts = {k.__name__: 0 for k in kernels.KERNELS}
-
     def hard_max_check(pl, prob, res, label):
         """Every plan reported feasible passes the hard-max collision check
         through the values-only kernel; k is finite and in the box where
@@ -2182,11 +2240,11 @@ def main() -> int:
                                                traj_type="orig"), args8, {main_name: passes})
     emit(out)
 
-    # more starts than one launch of the main kernel takes (12: chunks of 8
-    # and 4) through the same entry point: two launches per pass
+    # more starts than one start group of the main kernel holds (12: three
+    # groups of 4) through the same entry point: still one launch per pass
     _, _, out = run_mode(f"{S_many}starts",
                          ArmourPlanner(spec, dataclasses.replace(cfg, nlp_num_starts=S_many),
-                                       dtype=torch.float32, device=dev), args8, {main_name: 2 * passes})
+                                       dtype=torch.float32, device=dev), args8, {main_name: passes})
     assert out["feasible_fraction"] > 0.0, out
     rows[many_name]["launches"] = out["launches_per_plan_batch"][main_name]
     emit(out)
@@ -2197,6 +2255,14 @@ def main() -> int:
     _, _, out = run_mode("smooth", smooth_pl, args8, {"fused_collision_values_multi": 1})
     rows[pool_name]["launches"] = out["launches_per_plan_batch"]["fused_collision_values_multi"]
     emit(dict(out, tau=tau, pool=S_pool))
+    # the same at 12 starts: a pool of 26 candidates, still one launch
+    smooth_pl = ArmourPlanner(spec, dataclasses.replace(cfg, smooth_collision_tau=tau,
+                                                        nlp_num_starts=S_many),
+                              dtype=torch.float32, device=dev)
+    _, _, out = run_mode(f"smooth_{S_many}starts", smooth_pl, args8,
+                         {"fused_collision_values_multi": 1})
+    rows[many_pool_name]["launches"] = out["launches_per_plan_batch"]["fused_collision_values_multi"]
+    emit(dict(out, tau=tau, pool=S_many_pool))
     del smooth_pl
 
     # grasp: every world starts near the tray-up pose (end-effector z-axis
@@ -2395,10 +2461,11 @@ def main() -> int:
 
     # ---- tail ------------------------------------------------------------
     order = ("fused_collision_value_jac_multi", "fused_collision_values_multi",
-             "fused_collision_value_jac", "fused_rollout", pool_name, many_name, wide_name, batch1_row, *ext_rows,
+             "fused_collision_value_jac", "fused_rollout", pool_name, many_name, many_pool_name,
+             wide_name, batch1_row, *ext_rows,
              battery_row, *tool_rows)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "plain_ms", "graph_ms", "plain_graph_ms", "bound_ms", "bound_by", "library_ms")
     table = []
     for name in order:
         r = dict(rows[name], max_abs_err=rows[name]["max_abs_err_float32"])

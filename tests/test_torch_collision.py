@@ -7,10 +7,11 @@ the production float32 with bf16 normals.  The JAX side runs its portable
 ``impl="xla"`` pipeline, never the Pallas kernels.  On CPU tensors the
 port's kernel wrappers run their plain versions.
 
-The multi-start entry points are also held to JAX at 10 starts, more than
-one launch of the CUDA value + Jacobian kernel takes (the plain version is
-what the card tests hold the chunked launches to), and a planner with
-``nlp_num_starts=10`` plans like the JAX planner with the same starts.
+The multi-start entry points are also held to JAX at 10 and 26 starts,
+more than one start group of the CUDA kernels holds (4 with the Jacobian,
+16 without; the plain version is what the card tests hold those launches
+to), and a planner with ``nlp_num_starts=10`` plans like the JAX planner
+with the same starts.
 
 Tolerances: float64 values at atol 1e-12; float32 at atol 2e-6 (the
 Pallas tests' own); Jacobians on the slots whose winning hyperplane is
@@ -62,6 +63,20 @@ def _build_problem(rng, dtype, n_obs=3):
         rng.uniform(-0.6, 0.6, (n_obs, 3)), rng.uniform(0.05, 0.3, (n_obs, 3)), 8, dtype)
     return jax.jit(planner._make_build_fn())(
         q0, jnp.zeros(7, dtype), jnp.zeros(7, dtype), obs.zonos, obs.mask)
+
+
+_PROBLEMS = {}
+
+
+def _shared_problem(rng, dtype):
+    """`_build_problem` once per dtype and generator state: each build
+    compiles the JAX build function afresh, so the cases that differ only in
+    the start count share one.  ``rng`` is left where the build leaves it."""
+    key = (jnp.dtype(dtype).name, str(rng.bit_generator.state))
+    if key not in _PROBLEMS:
+        _PROBLEMS[key] = (_build_problem(rng, dtype), rng.bit_generator.state)
+    prob, rng.bit_generator.state = _PROBLEMS[key]
+    return prob
 
 
 def _port(prob, dtype):
@@ -201,14 +216,16 @@ def test_plain_kernels_skip_nan_pieces():
     assert kernels.launch_counts() == {k.__name__: 0 for k in kernels.KERNELS}
 
 
+@pytest.mark.parametrize("S", [10, 26])
 @pytest.mark.parametrize("dtype", [jnp.float64, jnp.float32])
-def test_plain_kernels_match_jax_xla_ten_starts(rng, dtype):
-    """S = 10 (the CUDA value + Jacobian kernel takes 8 per launch and the
-    wrapper chunks; the plain version takes any S at once): values and
-    tie-masked Jacobians of every start lane against the JAX pipeline."""
-    prob = _build_problem(rng, dtype)
+def test_plain_kernels_match_jax_xla_many_starts(rng, dtype, S):
+    """S = 10 and 26 (the smooth-mode pool of a 12-start plan): more starts
+    than one start group of the CUDA kernels holds (4 with the Jacobian, 16
+    without; a launch takes any S); the plain version takes any S at once.
+    Values and tie-masked Jacobians of every start lane against the JAX
+    pipeline."""
+    prob = _shared_problem(rng, dtype)
     links, hp = _port(prob, dtype)
-    S = 10
     K = rng.uniform(-0.9, 0.9, (S, 7))
     centers, _, dcenters = prob.links.slice_with_jac_multi(jnp.asarray(K, dtype))
     g_j, J_j = jax_cj_multi(prob.hp, centers, dcenters, impl="xla")

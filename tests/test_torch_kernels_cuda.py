@@ -10,9 +10,10 @@ obstacle buckets 8, 16 and 40, the shards of a constraint-parallel rank
 (O = 4 and 20), the planar arms (L = n = 2 and 6), time axes of 1, 5, 32, 127 and others that
 are no multiple of the tile, slabs whose rows are not 16-byte aligned (the
 kernel's direct path instead of its staged one), pair counts other than 36
-(fewer than the ring has stages, and no multiple of it), 1 to 20 starts
-(every instantiated bound, and the chunks beyond: 8 per launch with the
-Jacobian, 16 without), and banks with NaN offsets (a pair with a NaN never
+(fewer than the ring has stages, and no multiple of it), 1 to 26 starts
+(every instantiated bound, and the start groups beyond 4 with the Jacobian
+and 16 without: still one launch per call, a start's bits the same at any
+S), and banks with NaN offsets (a pair with a NaN never
 wins; a slot with none usable keeps g = 1e30, J = 0).  Tolerances: float32 offsets atol 2e-6 and
 float64 atol 1e-12 on values of order 1 (the kernel fuses multiply-adds
 where the plain version rounds each product); Jacobians on the slots
@@ -39,8 +40,10 @@ SHAPES = [  # B, S, n, L, O, T and, where it is not 36, P
     (2, 10, 7, 7, 8, 128),
     (1, 16, 7, 7, 16, 37),
     (1, 20, 7, 3, 8, 130),
-    (2, 9, 7, 7, 8, 32),         # 8 + 1 starts with the Jacobian
-    (1, 12, 7, 7, 8, 127),       # 8 + 4; an odd T on aligned rows
+    (2, 9, 7, 7, 8, 32),         # start groups of 4 + 4 + 1 with the Jacobian
+    (1, 12, 7, 7, 8, 127),       # 4 + 4 + 4; an odd T on aligned rows
+    (1, 17, 7, 7, 8, 128),       # values only: start groups of 10 + 7
+    (2, 26, 7, 7, 8, 128),       # a 12-start plan's pool: values 16 + 10, Jacobian 7 x 4
     (2, 4, 7, 7, 3, 5),          # O*T = 15: rows not aligned, the direct path
     (2, 4, 7, 7, 8, 1),
     (1, 4, 7, 7, 16, 64),
@@ -51,7 +54,6 @@ SHAPES = [  # B, S, n, L, O, T and, where it is not 36, P
     (2, 4, 7, 7, 4, 128),        # a cp = 2 shard of 8 obstacle slots: O = 4
     (1, 4, 7, 7, 20, 128),       # a cp = 2 shard of 40 slots: O = 20, staged (20 % 4 = 0)
 ]
-JAC_STARTS, VALUE_STARTS = 8, 16   # starts per launch
 ATOL = {torch.float32: 2e-6, torch.float64: 1e-12}
 
 
@@ -114,14 +116,34 @@ def test_kernels_match_plain(card, shape, types, nan):
     assert (g1 - g1p).abs().max().item() <= atol
     assert ((J1 - J1p).abs() * uniq[:, 0, None]).max().item() <= atol
     assert torch.equal(g1, g[:, 0]) and torch.equal(J1, J[:, 0])
-    # the last start's lane (in the last chunk) equals its own single-start launch
+    # the last start's lane (in the last start group) equals its own single-start launch
     g_last, J_last = kernels.fused_collision_value_jac(A, dpos, dneg, c[:, S - 1].contiguous(),
                                                        dc[:, S - 1].contiguous())
     assert torch.equal(g_last, g[:, S - 1]) and torch.equal(J_last, J[:, S - 1])
     assert kernels.launch_counts() == {
-        "fused_collision_value_jac_multi": -(-S // JAC_STARTS),
-        "fused_collision_values_multi": -(-S // VALUE_STARTS),
+        "fused_collision_value_jac_multi": 1,
+        "fused_collision_values_multi": 1,
         "fused_collision_value_jac": 2}
+
+
+@pytest.mark.parametrize("types", [(torch.bfloat16, torch.float32), (torch.float64, torch.float64)],
+                         ids=lambda t: f"{str(t[0])[6:]}-{str(t[1])[6:]}")
+def test_twelve_starts_equal_launches_of_eight_and_four(card, types):
+    """One launch at S=12 (three start groups of 4) gives the same bits as
+    launches of the same kernel at the first 8 starts and at the last 4, and
+    agrees with the plain version (float64 offsets with a float64 bank too)."""
+    A, dpos, dneg, c, dc = _bank((2, 12, 7, 7, 8, 128), *types, seed=12, device=card)
+    g, J = kernels.fused_collision_value_jac_multi(A, dpos, dneg, c, dc)
+    parts = [kernels.fused_collision_value_jac_multi(A, dpos, dneg, c[:, sl].contiguous(),
+                                                     dc[:, sl].contiguous())
+             for sl in (slice(0, 8), slice(8, 12))]
+    torch.cuda.synchronize()
+    assert torch.equal(g, torch.cat([parts[0][0], parts[1][0]], dim=1))
+    assert torch.equal(J, torch.cat([parts[0][1], parts[1][1]], dim=1))
+    gp, Jp = kernels.value_jac_multi_plain(A, dpos, dneg, c, dc)
+    uniq = kernels.tie_mask(A, dpos, dneg, c, tol=1e-5)
+    assert (g - gp).abs().max().item() <= ATOL[types[1]]
+    assert ((J - Jp).abs() * uniq[:, :, None]).max().item() <= ATOL[types[1]]
 
 
 def test_first_maximum_wins_and_nan_never_wins(card):
