@@ -2,7 +2,9 @@
 the same C interface, inside one process on one card.
 
     python -m armour_tpu_torch.bench_bank [--other NAME=SOURCE.cu[,NVCC_FLAG...]]...
-                                          [--obstacles 8] [--seed 0] [--reps 20]
+                                          [--batch 128 ...] [--obstacles 8 ...]
+                                          [--time-steps 128 ...] [--paths auto small stream]
+                                          [--seed 0] [--reps 20] [--ptxas DIR]
 
 Kernel times differ by about 10 % from one machine to the next, so two
 versions are compared only here: the tree's kernel and every ``--other``
@@ -10,8 +12,10 @@ versions are compared only here: the tree's kernel and every ``--other``
 source with a ``-D`` flag) are built, run on the same bank, held against
 each other, and timed in turns (tree, others, others reversed, tree).
 
-The bank is the one the planner's main path builds (`problem_set`, B=128,
-T=128, bf16 normals, f32 offsets); the rows are the launches the port makes:
+The banks are the planner's (`problem_set` with every one of O slots live,
+built without culling: bf16 normals, f32 offsets), one for each (B, O, T)
+of the lists (default B=128, O=8, T=128; the batch-1 plan's is B=1, the
+grasp example's B=1 and T=64); the rows are the launches the port makes:
 value + Jacobian at S=4, 1, 8 and 12 (a 12-start plan's), values only at S=4,
 10 (the verification pool), 16 and 26 (a 12-start plan's pool).  A source
 that refuses a row's start count (one from before any S was one launch) is
@@ -19,17 +23,26 @@ left out of that row.  One JSON line per row: ``ms`` times one launch
 between two events (the host work of the launch included), ``graph_ms`` one
 launch of a CUDA graph of 20 (the device alone, as the kept plan programs
 launch it); `bound_ms` is bytes moved (each input read once, each output
-written once) over 3.35 TB/s.  With ``--ptxas DIR`` the ``-Xptxas -v`` log
-of every build is written there.
+written once) over 3.35 TB/s, and ``floor_ms`` the graph time of an empty
+kernel (the least any launch costs).  ``--paths`` times every build
+through each path named: ``auto`` is the launch's own choice, ``small`` and
+``stream`` force one (version names ``tree:small``, ``tree:stream``);
+``paths`` is the path each version's launch reported, and every version's
+outputs are held to the tree's auto path, bit by bit.  Every ``--other``
+source has this tree's C interface (the path argument and the reported
+path); `kernels.bind` refuses one without it.  With ``--ptxas DIR`` the
+``-Xptxas -v`` log of every build is written there.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import statistics
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -101,9 +114,11 @@ def graph_ms(fn, calls: int = 20, reps: int = 5) -> float:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", action="append", default=[], metavar="NAME=SOURCE[,FLAG...]")
-    ap.add_argument("--obstacles", type=int, default=8)
+    ap.add_argument("--batch", type=int, nargs="+", default=[128])
+    ap.add_argument("--obstacles", type=int, nargs="+", default=[8])
+    ap.add_argument("--time-steps", type=int, nargs="+", default=[128])
+    ap.add_argument("--paths", nargs="+", default=["auto"], choices=["auto", "small", "stream"])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--ptxas", type=Path, default=None, help="directory for the ptxas logs")
     args = ap.parse_args(argv)
@@ -117,10 +132,15 @@ def main(argv=None) -> int:
         name, _, rest = item.partition("=")
         source, *flags = rest.split(",")
         builds.append((name, Path(source), tuple(flags)))
-    libs = {}
-    for name, source, flags in builds:
-        info = kernels.build(verbose=True, source=source, extra_flags=flags)
-        libs[name] = kernels.bind(info["path"])
+    with ThreadPoolExecutor(len(builds)) as pool:     # one nvcc per build, all at once
+        infos = list(pool.map(lambda b: kernels.build(verbose=True, source=b[1], extra_flags=b[2]),
+                              builds))
+    libs, versions = {}, {}       # version name -> (library, path)
+    for (name, source, flags), info in zip(builds, infos):
+        libs[name] = lib = kernels.bind(info["path"])
+        for path in args.paths:
+            auto = path == "auto"
+            versions[name if auto else f"{name}:{path}"] = (lib, None if auto else path)
         summary = kernels.ptxas_summary(info["log"])
         if args.ptxas:
             args.ptxas.mkdir(parents=True, exist_ok=True)
@@ -130,12 +150,28 @@ def main(argv=None) -> int:
                           "max_registers": max((r["registers"] for r in summary), default=None),
                           "spilling": [r for r in summary if r["spill_stores"] or r["spill_loads"]]}),
               flush=True)
+    if "tree" not in versions:
+        versions = {"tree": (libs["tree"], None), **versions}
+    floor = graph_ms(lambda: kernels._launch_empty(lib=libs["tree"]))
+    print(json.dumps({"row": "empty_kernel", "card": smi, "grid": [1, 32], "graph_ms": floor,
+                      "ms": time_ms(lambda: kernels._launch_empty(lib=libs["tree"]), args.reps)}),
+          flush=True)
 
-    spec, cfg = kinova_gen3_spec(), PlannerConfig()
-    B, S, n = args.batch, cfg.nlp_num_starts, spec.n_factors
-    probs = problem_set(cfg, B, n_obs=args.obstacles, seed=args.seed, device="cuda")
+    spec = kinova_gen3_spec()
+    n = spec.n_factors
+    for B, O, T in itertools.product(args.batch, args.obstacles, args.time_steps):
+        cfg = PlannerConfig(num_time_steps=T, max_obstacles=O)
+        bench_bank(args, smi, versions, floor, spec, cfg, B, n)
+    return 0
+
+
+def bench_bank(args, smi, versions, floor, spec, cfg, B, n):
+    """The rows of one bank: every version of each launch, timed in turns."""
+    S, O = cfg.nlp_num_starts, cfg.max_obstacles
+    probs = problem_set(cfg, B, n_obs=O, seed=args.seed, device="cuda")
     planner = ArmourPlanner(spec, cfg, dtype=torch.float32, device="cuda")
-    prob = planner.build_probs(probs.q0, probs.qd0, probs.qdd0, probs.zonos, probs.masks)
+    prob = planner.build_probs(probs.q0, probs.qd0, probs.qdd0, probs.zonos, probs.masks,
+                               cull=False)
     hp = prob.hp
     rng = np.random.default_rng(1)
 
@@ -157,42 +193,48 @@ def main(argv=None) -> int:
         ("values_multi[S=4]", kernels._launch_values_multi, (*bank, c4)),
         ("value_jac[S=1]", kernels._launch_value_jac_multi,
          (*bank, c4[:, :1].contiguous(), dc4[:, :1].contiguous())),
+        ("values_multi[S=1]", kernels._launch_values_multi, (*bank, c4[:, :1].contiguous())),
         (f"values_multi[S={2 * S + 2}]", kernels._launch_values_multi, (*bank, c10)),
         ("value_jac_multi[S=8]", kernels._launch_value_jac_multi, (*bank, c8, dc8)),
         (f"value_jac_multi[S={S_many}]", kernels._launch_value_jac_multi, (*bank, c12, dc12)),
         ("values_multi[S=16]", kernels._launch_values_multi, (*bank, c16)),
         (f"values_multi[S={2 * S_many + 2}]", kernels._launch_values_multi, (*bank, c26)),
     )
+    sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
     for row, launch, tensors in rows:
-        outs, refused = {}, {}
-        for name, lib in libs.items():
+        outs, paths, refused = {}, {}, {}
+        for name, (lib, path) in versions.items():
             try:
-                outs[name] = launch(*tensors, lib=lib)
-            except RuntimeError as e:     # an earlier source may refuse the row's start count
+                *outs[name], paths[name] = launch(*tensors, lib=lib, path=path)
+            except RuntimeError as e:     # another source may refuse the row's start count
                 refused[name] = str(e)
         torch.cuda.synchronize()
         names = list(outs)
         order = names + names[:0:-1] + ["tree"] if len(names) > 1 else ["tree", "tree"]
         ref = outs["tree"]
-        ref = ref if isinstance(ref, tuple) else (ref,)
-        diff = {}
+        diff, bits = {}, {}
         for name, out in outs.items():
-            out = out if isinstance(out, tuple) else (out,)
-            # values must agree to rounding; Jacobians may pick another normal at a tie
             diff[name] = float((out[0] - ref[0]).abs().max())
+            bits[name] = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                             for a, b in zip(out, ref))
         moved = sum(t.numel() * t.element_size() for t in (*tensors, *ref))
         ms, in_graph = {}, {}
         for name in order:
+            lib, path = versions[name]
             ms.setdefault(name, []).append(
-                time_ms(lambda: launch(*tensors, lib=libs[name]), args.reps))
-            in_graph.setdefault(name, []).append(graph_ms(lambda: launch(*tensors, lib=libs[name])))
+                time_ms(lambda: launch(*tensors, lib=lib, path=path), args.reps))
+            in_graph.setdefault(name, []).append(
+                graph_ms(lambda: launch(*tensors, lib=lib, path=path)))
         print(json.dumps({"row": row, "card": smi, "bank": list(hp.A.shape), "bytes": moved,
-                          "bound_ms": moved / PEAK_BYTES_PER_S * 1e3, "order": order,
-                          "ms": ms, "graph_ms": in_graph, "max_abs_g_diff_to_tree": diff,
+                          "bound_ms": moved / PEAK_BYTES_PER_S * 1e3, "floor_ms": floor,
+                          "auto_path": paths["tree"], "paths": paths, "sms": sms,
+                          "order": order, "ms": ms, "graph_ms": in_graph,
+                          "max_abs_g_diff_to_tree": diff, "bits_equal_to_tree": bits,
                           "refused": refused}),
               flush=True)
         del outs, ref
-    return 0
+    del probs, planner, prob, hp, bank, rows
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -19,12 +19,20 @@ number of starts is one launch, as the Pallas kernels take any S in one
 splits them into groups whose blocks run side by side and stream the same
 bank, and each group writes its starts at their own offsets in the outputs.
 
-The kernel (one template, `bank_pass`) streams the bank through shared
-memory with Hopper's bulk asynchronous copies when the slab's rows are
-16-byte aligned, T divides 128 and the obstacle count is a multiple of the
+A launch takes one of two paths, each a kernel template of the source.
+The streaming path (`bank_pass`) streams the bank through shared memory
+with Hopper's bulk asynchronous copies when the slab's rows are 16-byte
+aligned, T divides 128 and the obstacle count is a multiple of the
 obstacles a thread owns (4 at the planner's shapes: buckets 8, 16, 40 and
 T = 128 all qualify); other shapes take scalar loads inside the same
-kernel.  The source's header comment has the design and what bounds it.
+kernel.  The small-grid path (`bank_pass_small`) serves banks whose
+streaming grid cannot fill the card (the batch-1 and grasp plans): one
+obstacle per thread, the whole tile of all pairs in shared memory at once,
+the pair axis split over the warps of a block.  The launch picks the path
+(``launch_path`` of `csrc/collision_bank_grid.cuh`, the one model of both
+grids) from the bank's shape and the card's SM count, and reports the path
+it took; both give the same bits.  The source's header comment has the
+design and what bounds it.
 
 The library is built at first use with ``nvcc`` into
 ``armour_tpu_torch/build/`` (a plain C interface, loaded with ctypes; about
@@ -57,6 +65,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1, torch.float64: 2}
+PATHS = {"stream": 0, "small": 1}   # the C entry points' path argument, and what they report
+_AUTO = 2                           # the path argument that lets the launch choose
 _START = -1e30  # the running max's start value
 
 
@@ -176,16 +186,18 @@ def ptxas_summary(log: str) -> list:
     """One row per kernel of a ``-Xptxas -v`` log: {"kernel", "registers",
     "spill_stores", "spill_loads", "smem_bytes", "barriers"} (spills in bytes
     per thread, shared memory in bytes per block), the instantiations of
-    ``bank_pass`` and ``rollout_kernel`` under a readable name."""
+    ``bank_pass``, ``bank_pass_small`` and ``rollout_kernel`` under a
+    readable name."""
     rows, name, spill = [], None, (0, 0)
     types = {"13__nv_bfloat16": "bf16", "f": "f32", "d": "f64"}
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
-            m = re.search(r"bank_passI(13__nv_bfloat16|f|d)(f|d)Li(\d+)ELb([01])E", name)
-            if m:  # bank_pass<A type, offsets' type, start bound, with Jacobian>
-                name = (f"bank_pass<{types[m[1]]},{types[m[2]]},S<={m[3]},"
-                        f"{'value+jac' if m[4] == '1' else 'values'}>")
+            m = re.search(r"(bank_pass(?:_small)?)I(13__nv_bfloat16|f|d)(f|d)Li(\d+)ELb([01])E",
+                          name)
+            if m:  # bank_pass[_small]<A type, offsets' type, start bound, with Jacobian>
+                name = (f"{m[1]}<{types[m[2]]},{types[m[3]]},S<={m[4]},"
+                        f"{'value+jac' if m[5] == '1' else 'values'}>")
             m = re.search(r"rollout_kernelI(f|d)Li(\d+)E", name)
             if m:  # rollout_kernel<scalar, template integer>
                 name = f"rollout_kernel<{types[m[1]]},{m[2]}>"
@@ -203,14 +215,17 @@ def ptxas_summary(log: str) -> list:
 
 
 def bind(path) -> ctypes.CDLL:
-    """Load a built library and declare the two entry points' C types."""
+    """Load a built library and declare its entry points' C types."""
     lib = ctypes.CDLL(str(path))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    ptr, i32, out = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
     lib.armour_collision_value_jac_multi.argtypes = [
-        ptr, i32, ptr, ptr, i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr]
+        ptr, i32, ptr, ptr, i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32,
+        i32, out, ptr]
     lib.armour_collision_values_multi.argtypes = [
-        ptr, i32, ptr, ptr, i32, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
-    for fn in (lib.armour_collision_value_jac_multi, lib.armour_collision_values_multi):
+        ptr, i32, ptr, ptr, i32, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, out, ptr]
+    lib.armour_collision_empty.argtypes = [ptr]
+    for fn in (lib.armour_collision_value_jac_multi, lib.armour_collision_values_multi,
+               lib.armour_collision_empty):
         fn.restype = i32
     return lib
 
@@ -278,30 +293,45 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def _launch_value_jac_multi(A, dpos, dneg, c, dc, lib=None):
+def _launch_value_jac_multi(A, dpos, dneg, c, dc, lib=None, path=None):
     """Launch the value + Jacobian kernel (of ``lib``, else of this source's
-    library) on checked CUDA tensors; the caller counts the launch."""
+    library) on checked CUDA tensors on the current device; the caller counts
+    the launch.  Returns g, J and the path launched ("stream" or "small").
+    ``path`` forces one for the tests and `bench_bank` (a bank that cannot
+    take the small-grid path streams all the same); None lets the launch
+    choose."""
+    lib = lib or _lib()
     B, P, _, L, O, T = A.shape
     S, n = dc.shape[1], dc.shape[2]
     g = torch.empty((B, S, L, O, T), dtype=dpos.dtype, device=dpos.device)
     J = torch.empty((B, S, n, L, O, T), dtype=dpos.dtype, device=dpos.device)
-    err = (lib or _lib()).armour_collision_value_jac_multi(
+    ran = ctypes.c_int(-1)
+    err = lib.armour_collision_value_jac_multi(
         _ptr(A), _DTYPE_CODE[A.dtype], _ptr(dpos), _ptr(dneg), _DTYPE_CODE[dpos.dtype],
-        _ptr(c), _ptr(dc), _ptr(g), _ptr(J), B, P, L, O, T, S, n, _stream())
+        _ptr(c), _ptr(dc), _ptr(g), _ptr(J), B, P, L, O, T, S, n,
+        _AUTO if path is None else PATHS[path], ctypes.byref(ran), _stream())
     _raise_on(err, "armour_collision_value_jac_multi")
-    return g, J
+    return g, J, list(PATHS)[ran.value]
 
 
-def _launch_values_multi(A, dpos, dneg, c, lib=None):
-    """Launch the values-only kernel likewise."""
+def _launch_values_multi(A, dpos, dneg, c, lib=None, path=None):
+    """Launch the values-only kernel likewise: returns g and the path."""
+    lib = lib or _lib()
     B, P, _, L, O, T = A.shape
     S = c.shape[1]
     g = torch.empty((B, S, L, O, T), dtype=dpos.dtype, device=dpos.device)
-    err = (lib or _lib()).armour_collision_values_multi(
+    ran = ctypes.c_int(-1)
+    err = lib.armour_collision_values_multi(
         _ptr(A), _DTYPE_CODE[A.dtype], _ptr(dpos), _ptr(dneg), _DTYPE_CODE[dpos.dtype],
-        _ptr(c), _ptr(g), B, P, L, O, T, S, _stream())
+        _ptr(c), _ptr(g), B, P, L, O, T, S, _AUTO if path is None else PATHS[path],
+        ctypes.byref(ran), _stream())
     _raise_on(err, "armour_collision_values_multi")
-    return g
+    return g, list(PATHS)[ran.value]
+
+
+def _launch_empty(lib=None):
+    """Launch the library's empty kernel (one warp): the floor under any launch."""
+    _raise_on((lib or _lib()).armour_collision_empty(_stream()), "armour_collision_empty")
 
 
 def fused_collision_value_jac_multi(A, dpos, dneg, c, dc):
@@ -317,7 +347,8 @@ def fused_collision_value_jac_multi(A, dpos, dneg, c, dc):
         return value_jac_multi_plain(A, dpos, dneg, c, dc)
     _check_contiguous(A, dpos, dneg, c, dc)
     fused_collision_value_jac_multi.launches += 1
-    return _launch_value_jac_multi(A, dpos, dneg, c, dc)
+    g, J, _ = _launch_value_jac_multi(A, dpos, dneg, c, dc)
+    return g, J
 
 
 def fused_collision_values_multi(A, dpos, dneg, c):
@@ -331,7 +362,7 @@ def fused_collision_values_multi(A, dpos, dneg, c):
         return values_multi_plain(A, dpos, dneg, c)
     _check_contiguous(A, dpos, dneg, c)
     fused_collision_values_multi.launches += 1
-    return _launch_values_multi(A, dpos, dneg, c)
+    return _launch_values_multi(A, dpos, dneg, c)[0]
 
 
 def fused_collision_value_jac(A, dpos, dneg, c, dc):
@@ -346,7 +377,7 @@ def fused_collision_value_jac(A, dpos, dneg, c, dc):
         return value_jac_plain(A, dpos, dneg, c, dc)
     _check_contiguous(A, dpos, dneg, c, dc)
     fused_collision_value_jac.launches += 1
-    g, J = _launch_value_jac_multi(A, dpos, dneg, c[:, None], dc[:, None])
+    g, J, _ = _launch_value_jac_multi(A, dpos, dneg, c[:, None], dc[:, None])
     return g[:, 0], J[:, 0]
 
 

@@ -8,9 +8,16 @@
 //   armour_collision_value_jac_multi  <- fused_collision_value_jac_multi  (pallas_kernel.py:108-186)
 //                                        and, at S = 1, fused_collision_value_jac (pallas_kernel.py:30-105)
 //   armour_collision_values_multi     <- fused_collision_values_multi     (pallas_kernel.py:189-237)
-// Both are one kernel template (bank_pass below): the values-only
-// instantiations drop the normals, the sign and the Jacobian epilogue.  As
-// the Pallas kernels do, each takes any number of starts S in one launch.
+// Each launch takes one of two paths, a kernel template each: the streaming
+// path (bank_pass) for banks that fill the card, the small-grid path
+// (bank_pass_small) for banks that cannot (a batch-1 plan's, the grasp
+// example's).  The launch chooses (launch_path in collision_bank_grid.cuh,
+// the one model of both grids: the small-grid path where the streaming grid
+// has fewer blocks than the card has SMs and the small grid runs in at most
+// 3 waves) unless the caller forces a path, and reports the path it launched.
+// The values-only instantiations drop the normals, the sign and the Jacobian
+// epilogue.  As the Pallas kernels do, each takes any number of starts S in
+// one launch.
 //
 // Semantics, shared with the Pallas kernels, for each (b, l, o, t) slot and
 // start s:  Ac = A.c,  vp = Ac - dpos,  vn = -Ac - dneg,  v = max(vp, vn);
@@ -36,7 +43,7 @@
 // 25 KB for each of the 132 SMs) without paying for them in registers, and
 // few enough instructions per slot that issuing them hides under the copies.
 //
-// Design.
+// Design of the streaming path.
 // * A thread owns one (link, time step) and V obstacles of it (V = 4, 2 or
 //   1): its slots are T apart on the flat (L,O,T) axis.  The centre c and its
 //   k-derivative dc depend on (start, link, time) only, so the thread holds c
@@ -87,10 +94,47 @@
 //   that does not divide 128 or an O that V does not divide take the direct
 //   path inside the same kernel: the same ownership, scalar loads from device
 //   memory that coalesce along t, any P, L, O, T.
+//
+// Design of the small-grid path.  At B = 1 the streaming grid is 14 blocks of
+// 4 warps (7 for the grasp bank) on 132 SMs, each walking 36 pairs through
+// its ring with a block barrier per pair: latency, not bytes, set its time
+// (0.028 ms against a 0.0015 ms byte bound).
+// * One obstacle per thread (V = 1): a block's 128 slots are one contiguous
+//   run of the flat (L,O,T) axis, whatever T is.
+// * Every pair of the tile in flight at once: the block's shared memory holds
+//   all P pairs (36 x 128 x (3 |A| + 2 |offsets|) bytes: 64.5 KB with bf16 A
+//   and f32 offsets, 184 KB in f64), filled by 16-byte cp.async copies from
+//   every thread and one block barrier; nothing is refilled.  (180 bulk
+//   copies of 256-512 bytes issued from one warp read 0.0126-0.0129 ms where
+//   these read 0.0084-0.0092 at the batch-1 bank on an H100, `bench_bank`.)  Each
+//   thread's rows of c and of the epilogue's dc are loaded while the tile
+//   lands.
+// * The pair axis spread over the warps: kPairGroups groups of 4 warps, group
+//   k takes pairs [k * ceil(P / groups), ...) in order, keeping its best and
+//   the winning pair's code.  The groups combine in shared memory in pair
+//   order with the same strict '>' (or, values only, the same maximum), so
+//   the first maximum wins and a NaN piece never wins, as in one sequential
+//   loop; the epilogue reads the winning normal from the resident tile and
+//   spreads a slot's (start, Jacobian row) outputs over its groups' threads.
+//   No global scratch, no atomics.
+// * As many blocks as leave one to an SM: a block takes 1, 2 or 4 starts,
+//   the fewest whose grid still fits the SM count (at B = 1 and S = 4: 2
+//   starts at T = 128, 112 blocks; 1 at T = 64, 112 blocks), else 4.
+// * The same bits as the streaming path: both call pieces() and jac_dot(),
+//   and the winner is the same pair, so g and J agree bit for bit at every
+//   shape and type.  Shapes whose rows are not 16-byte aligned, or whose tile
+//   does not fit a block's shared memory, stream even when the small-grid
+//   path is forced (and take the direct path where its conditions say so);
+//   the entry points report the path launched.
+// * Its tile needs more than the default 48 KB of shared memory: the launch
+//   raises the kernel's limit before its first launch on a device, as the
+//   streaming path's does (allow_smem).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "collision_bank_grid.cuh"
 
 namespace {
 
@@ -110,25 +154,11 @@ __device__ __forceinline__ double upcast<__nv_bfloat16, double>(__nv_bfloat16 x)
 __device__ __forceinline__ float max_of(float a, float b) { return fmaxf(a, b); }
 __device__ __forceinline__ double max_of(double a, double b) { return fmax(a, b); }
 
-constexpr int kThreads = 128;
-constexpr int kStages = 4;           // pairs in flight per block
-constexpr int kStateRegisters = 80;  // budget for the per-thread running state
-
-// Obstacles per thread: the most of 4, 2, 1 whose running state (c for every
-// start, and per obstacle best plus, with the Jacobian, the normal) fits the
-// register budget.  (8 fit at one start, but tiles of 1024 slots left too
-// few blocks on an SM and ran slower; asking ptxas for 5 or 6 blocks per SM
-// through __launch_bounds__ made it spill and ran slower too.)
-constexpr int state_words(int starts, int v, bool jac, int word) {
-  return starts * (3 + v * (jac ? 4 : 1)) * word;
-}
+using namespace armour_bank;
 
 template <typename OT, int MAXS, bool JAC>
 struct ObstaclesPerThread {
-  static constexpr int W = static_cast<int>(sizeof(OT) / 4);
-  static constexpr int value = state_words(MAXS, 4, JAC, W) <= kStateRegisters   ? 4
-                               : state_words(MAXS, 2, JAC, W) <= kStateRegisters ? 2
-                                                                                 : 1;
+  static constexpr int value = obstacles_per_thread(MAXS, JAC, static_cast<int>(sizeof(OT) / 4));
 };
 
 // ---- Hopper asynchronous copies ------------------------------------------
@@ -169,7 +199,29 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_
       : "memory");
 }
 
+// 16-byte asynchronous copy, device memory -> shared memory, through L2 only.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst),
+               "l"(__cvta_generic_to_global(src))
+               : "memory");
+}
+
 // ---- the arithmetic of one hyperplane pair: V obstacles, all starts --------
+
+// The two pieces of one (pair, slot, start), and the Jacobian's dot product:
+// both paths call these, so a slot's bits do not depend on the path.
+template <typename OT>
+__device__ __forceinline__ void pieces(OT A0, OT A1, OT A2, OT dp, OT dn, OT cx, OT cy, OT cz,
+                                       OT& vp, OT& vn) {
+  const OT Ac = A0 * cx + A1 * cy + A2 * cz;
+  vp = Ac - dp;
+  vn = -Ac - dn;
+}
+
+template <typename OT>
+__device__ __forceinline__ OT jac_dot(OT a0, OT a1, OT a2, OT dx, OT dy, OT dz) {
+  return a0 * dx + a1 * dy + a2 * dz;
+}
 
 template <typename OT, int MAXS, int NJ, bool JAC, int V>
 __device__ __forceinline__ void pair_update(
@@ -180,9 +232,8 @@ __device__ __forceinline__ void pair_update(
   for (int s = 0; s < MAXS; ++s) {
 #pragma unroll
     for (int j = 0; j < V; ++j) {
-      const OT Ac = A0[j] * cx[s] + A1[j] * cy[s] + A2[j] * cz[s];
-      const OT vp = Ac - dp[j];
-      const OT vn = -Ac - dn[j];
+      OT vp, vn;
+      pieces(A0[j], A1[j], A2[j], dp[j], dn[j], cx[s], cy[s], cz[s], vp, vn);
       if constexpr (JAC) {
         const bool pos = vp >= vn;
         const OT v = pos ? vp : vn;
@@ -342,38 +393,273 @@ __global__ void __launch_bounds__(kThreads) bank_pass(
           OT* Ji = J + (bs * n + i) * N + slot0;
 #pragma unroll
           for (int j = 0; j < V; ++j)
-            if (live[j]) Ji[j * T] = a0[s][j] * dx + a1[s][j] * dy + a2[s][j] * dz;
+            if (live[j]) Ji[j * T] = jac_dot(a0[s][j], a1[s][j], a2[s][j], dx, dy, dz);
         }
       }
     }
   }
 }
 
+// ---- the small-grid path: banks whose streaming grid cannot fill the card ----
+
+template <typename AT, typename OT>
+__host__ __device__ constexpr int pair_bytes() {
+  return kSlots * static_cast<int>(3 * sizeof(AT) + 2 * sizeof(OT));
+}
+
+template <typename OT>
+struct SmallBlocksPerSm {
+  static constexpr int value = small_blocks_per_sm(static_cast<int>(sizeof(OT)));
+};
+
+template <typename AT, typename OT, int MAXS, bool JAC>
+__global__ void __launch_bounds__(kSmallThreads, SmallBlocksPerSm<OT>::value) bank_pass_small(
+    const AT* __restrict__ A, const OT* __restrict__ dpos, const OT* __restrict__ dneg,
+    const OT* __restrict__ c, const OT* __restrict__ dc, OT* __restrict__ g,
+    OT* __restrict__ J, int P, int L, int O, int T, int S, int n, int groups) {
+  constexpr int ROW_A = kSlots * static_cast<int>(sizeof(AT));
+  constexpr int ROW_O = kSlots * static_cast<int>(sizeof(OT));
+  constexpr int PAIR = pair_bytes<AT, OT>();
+  extern __shared__ __align__(128) unsigned char smem[];
+
+  const int s0 = (blockIdx.x % groups) * MAXS;  // the block's starts s0 .. s0 + SG - 1
+  const int SG = min(MAXS, S - s0);
+  const int tid = threadIdx.x;
+  const int i = tid % kSlots;  // the thread's slot in the tile
+  const int pg = tid / kSlots;  // its pair group: warps 4 pg .. 4 pg + 3
+  const int N = L * O * T;
+  const int tile0 = (blockIdx.x / groups) * kSlots;
+  const int count = min(kSlots, N - tile0);
+  const bool live = i < count;
+  const int slot = tile0 + i;  // one obstacle per thread: the flat (L,O,T) slot
+  const int ct = (slot / (O * T)) * T + slot % T;
+  const int64_t LT = (int64_t)L * T;
+  const int64_t b = blockIdx.y;
+  const int64_t bs0 = b * S + s0;
+  const AT* Aw = A + b * P * 3 * N;
+  const OT* Dp = dpos + b * P * N;
+  const OT* Dn = dneg + b * P * N;
+  const uint32_t tile_u32 = smem_u32(smem);
+  const int per = (P + kPairGroups - 1) / kPairGroups;  // pairs of one group
+  const int p_lo = min(P, pg * per), p_hi = min(P, p_lo + per);
+
+  // The whole tile, every pair at once: each thread copies 16-byte chunks of
+  // it (cp.async, issued from every warp), then one block barrier.  Chunks
+  // past the tile's last slot are not copied.
+  constexpr int CHUNKS_A = ROW_A / 16, CHUNKS_O = ROW_O / 16;
+  constexpr int CHUNKS = 3 * CHUNKS_A + 2 * CHUNKS_O;  // of one pair
+  const int valid_a = count * static_cast<int>(sizeof(AT));
+  const int valid_o = count * static_cast<int>(sizeof(OT));
+  const char* Ab = reinterpret_cast<const char*>(Aw + tile0);
+  const char* Dpb = reinterpret_cast<const char*>(Dp + tile0);
+  const char* Dnb = reinterpret_cast<const char*>(Dn + tile0);
+  for (int k = tid; k < P * CHUNKS; k += kSmallThreads) {
+    const int p = k / CHUNKS, q = k % CHUNKS;
+    const char* src;
+    int col;
+    if (q < 3 * CHUNKS_A) {
+      col = (q % CHUNKS_A) * 16;
+      if (col >= valid_a) continue;
+      src = Ab + ((int64_t)(3 * p + q / CHUNKS_A) * N) * sizeof(AT) + col;
+    } else {
+      const int r = (q - 3 * CHUNKS_A) / CHUNKS_O;
+      col = ((q - 3 * CHUNKS_A) % CHUNKS_O) * 16;
+      if (col >= valid_o) continue;
+      src = (r ? Dnb : Dpb) + ((int64_t)p * N) * sizeof(OT) + col;
+    }
+    cp_async16(tile_u32 + p * PAIR + q * 16, src);
+  }
+
+  // The epilogue's items it = s * n + r (a start and a Jacobian row): a
+  // thread takes every kPairGroups-th, BATCH at a time.  The first batch's
+  // rows of dc are loaded now, while the tile lands.
+  const int items = JAC ? SG * n : SG;
+  constexpr int BATCH = JAC ? 8 : 1;
+  OT d[BATCH][3];
+  auto load_dc = [&](int base) {
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int it = base + u * kPairGroups;
+      if (JAC && live && it < items) {
+        const OT* row = dc + ((bs0 + it / n) * n + it % n) * 3 * LT + ct;
+        d[u][0] = row[0];
+        d[u][1] = row[LT];
+        d[u][2] = row[2 * LT];
+      }
+    }
+  };
+  load_dc(pg);
+
+  // The block's starts, then the group's pairs in order, with the same
+  // arithmetic and rule as the streaming path; with the Jacobian the winner
+  // is kept as a pair code: p + 1 when the + piece won (normal -A), -(p + 1)
+  // for the - piece, 0 for none.
+  OT cx[MAXS], cy[MAXS], cz[MAXS], best[MAXS];
+  int win[MAXS];
+#pragma unroll
+  for (int s = 0; s < MAXS; ++s) {
+    best[s] = static_cast<OT>(-1e30);
+    win[s] = 0;
+    cx[s] = cy[s] = cz[s] = static_cast<OT>(0);
+    if (s < SG && live) {
+      const OT* cs = c + (bs0 + s) * 3 * LT + ct;
+      cx[s] = cs[0];
+      cy[s] = cs[LT];
+      cz[s] = cs[2 * LT];
+    }
+  }
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncthreads();
+  const unsigned char* tile = smem;
+  for (int p = p_lo; p < p_hi; ++p) {
+    const unsigned char* row = tile + p * PAIR;
+    const OT A0 = upcast<AT, OT>(reinterpret_cast<const AT*>(row)[i]);
+    const OT A1 = upcast<AT, OT>(reinterpret_cast<const AT*>(row + ROW_A)[i]);
+    const OT A2 = upcast<AT, OT>(reinterpret_cast<const AT*>(row + 2 * ROW_A)[i]);
+    const OT dp = reinterpret_cast<const OT*>(row + 3 * ROW_A)[i];
+    const OT dn = reinterpret_cast<const OT*>(row + 3 * ROW_A + ROW_O)[i];
+#pragma unroll
+    for (int s = 0; s < MAXS; ++s) {
+      OT vp, vn;
+      pieces(A0, A1, A2, dp, dn, cx[s], cy[s], cz[s], vp, vn);
+      if constexpr (JAC) {
+        const bool pos = vp >= vn;
+        const OT v = pos ? vp : vn;
+        if (vp == vp && vn == vn && v > best[s]) {
+          best[s] = v;
+          win[s] = pos ? p + 1 : -(p + 1);
+        }
+      } else {
+        const OT v = max_of(vp, vn);
+        if (vp == vp && vn == vn) best[s] = max_of(best[s], v);
+      }
+    }
+  }
+
+  // Combine the groups in pair order with the same strict '>' (the first
+  // maximum wins; a NaN piece never won inside a group), then g and J.  The
+  // (start, Jacobian row) outputs of a slot are spread over its groups' threads.
+  OT* cbest = reinterpret_cast<OT*>(smem + P * PAIR);  // [group][start][slot]
+  int* cwin = reinterpret_cast<int*>(cbest + kPairGroups * MAXS * kSlots);
+#pragma unroll
+  for (int s = 0; s < MAXS; ++s) {
+    cbest[(pg * MAXS + s) * kSlots + i] = best[s];
+    if constexpr (JAC) cwin[(pg * MAXS + s) * kSlots + i] = win[s];
+  }
+  __syncthreads();
+  if (!live) return;
+  for (int base = pg; base < items; base += BATCH * kPairGroups) {
+    if (base != pg) load_dc(base);
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int it = base + u * kPairGroups;
+      if (it >= items) break;
+      const int s = JAC ? it / n : it;
+      const int r = JAC ? it % n : 0;  // the Jacobian row
+      OT top = cbest[s * kSlots + i];
+      int w = JAC ? cwin[s * kSlots + i] : 0;
+      for (int k = 1; k < kPairGroups; ++k) {
+        const OT x = cbest[(k * MAXS + s) * kSlots + i];
+        if constexpr (JAC) {
+          if (x > top) {
+            top = x;
+            w = cwin[(k * MAXS + s) * kSlots + i];
+          }
+        } else {
+          top = max_of(top, x);
+        }
+      }
+      const int64_t bs = bs0 + s;
+      if (r == 0) g[bs * N + slot] = -top;
+      if constexpr (JAC) {
+        OT a0 = static_cast<OT>(0), a1 = static_cast<OT>(0), a2 = static_cast<OT>(0);
+        if (w != 0) {
+          const unsigned char* row = tile + (abs(w) - 1) * PAIR;
+          const OT A0 = upcast<AT, OT>(reinterpret_cast<const AT*>(row)[i]);
+          const OT A1 = upcast<AT, OT>(reinterpret_cast<const AT*>(row + ROW_A)[i]);
+          const OT A2 = upcast<AT, OT>(reinterpret_cast<const AT*>(row + 2 * ROW_A)[i]);
+          a0 = w > 0 ? -A0 : A0;
+          a1 = w > 0 ? -A1 : A1;
+          a2 = w > 0 ? -A2 : A2;
+        }
+        J[(bs * n + r) * N + slot] = jac_dot(a0, a1, a2, d[u][0], d[u][1], d[u][2]);
+      }
+    }
+  }
+}
+
+constexpr int kDevices = 64;  // devices whose SM count and shared-memory grants are kept
+
+// Let a kernel take more than the default 48 KB of dynamic shared memory,
+// before its first launch on a device that needs more than it was granted
+// (also inside a stream capture: the call is no stream operation).
+// `granted` is the calling launcher's own, one per kernel instantiation.
+template <typename Kernel>
+int allow_smem(Kernel kernel, int64_t bytes, int device, int64_t (&granted)[kDevices]) {
+  const bool kept = device >= 0 && device < kDevices;
+  if (bytes <= 48 * 1024 || (kept && granted[device] >= bytes)) return 0;
+  const int err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                            (int)bytes);
+  if (!err && kept) granted[device] = bytes;
+  return err;
+}
+
+template <typename AT, typename OT, int MAXS, bool JAC>
+int launch_small(const AT* A, const OT* dpos, const OT* dneg, const OT* c, const OT* dc, OT* g,
+                 OT* J, int B, int P, int L, int O, int T, int S, int n, int groups,
+                 int device, cudaStream_t stream) {
+  const int64_t tiles = cdiv((int64_t)L * O * T, kSlots);
+  if (tiles * groups > INT32_MAX) return (int)cudaErrorInvalidConfiguration;
+  auto kernel = bank_pass_small<AT, OT, MAXS, JAC>;
+  const int64_t smem = small_smem(P, sizeof(AT), sizeof(OT), MAXS, JAC);
+  static int64_t granted[kDevices] = {};
+  const int err = allow_smem(kernel, smem, device, granted);
+  if (err) return err;
+  const dim3 grid((unsigned)(tiles * groups), B);
+  kernel<<<grid, kSmallThreads, smem, stream>>>(A, dpos, dneg, c, dc, g, J, P, L, O, T, S, n,
+                                                groups);
+  return (int)cudaGetLastError();
+}
+
+// A kernel that does nothing: its time in a graph is the floor of any launch.
+__global__ void empty_kernel() {}
+
 inline bool aligned(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
+// The SM count of a device, read at its first launch.
+int sm_count(int device, int* sms) {
+  static int seen[kDevices] = {};
+  if (device >= 0 && device < kDevices && seen[device]) {
+    *sms = seen[device];
+    return 0;
+  }
+  const int err = (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  if (!err && device >= 0 && device < kDevices) seen[device] = *sms;
+  return err;
+}
+
 template <typename AT, typename OT, int MAXS, bool JAC>
 int launch_bound(const AT* A, const OT* dpos, const OT* dneg, const OT* c, const OT* dc, OT* g,
-                 OT* J, int B, int P, int L, int O, int T, int S, int n, int groups,
+                 OT* J, int B, int P, int L, int O, int T, int S, int n, int device,
                  cudaStream_t stream) {
   constexpr int V = ObstaclesPerThread<OT, MAXS, JAC>::value;
   constexpr int TILE = kThreads * V;
   constexpr int SMEM = 128 + kStages * TILE * static_cast<int>(3 * sizeof(AT) + 2 * sizeof(OT));
-  static_assert(kStages * 8 <= 128 && SMEM <= 232448, "the ring must fit a block's shared memory");
+  static_assert(kStages * 8 <= 128 && SMEM <= kMaxSmem, "the ring must fit a block's shared memory");
   const int64_t N = (int64_t)L * O * T;
   // staging: a block's items are whole (obstacle group, T) runs, and every
   // row of its tile starts and ends on a 16-byte boundary
   const bool staged = O % V == 0 && kThreads % T == 0 && (N * sizeof(AT)) % 16 == 0 &&
                       aligned(A, 16) && aligned(dpos, 16) && aligned(dneg, 16);
   auto kernel = bank_pass<AT, OT, MAXS, JAC>;
-  if (SMEM > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int64_t items = (int64_t)L * ((O + V - 1) / V) * T;
-  const int64_t blocks = (items + kThreads - 1) / kThreads * groups;
+  static int64_t granted[kDevices] = {};
+  const int err = allow_smem(kernel, SMEM, device, granted);
+  if (err) return err;
+  // the grid of launch_path's model (MAXS is stream_bound(S, JAC))
+  const int groups = stream_groups(S, JAC);
+  const int64_t blocks = stream_blocks(S, L, O, T, JAC, sizeof(OT));
   if (blocks > INT32_MAX) return (int)cudaErrorInvalidConfiguration;
   const dim3 grid((unsigned)blocks, B);
   kernel<<<grid, kThreads, SMEM, stream>>>(A, dpos, dneg, c, dc, g, J, P, L, O, T, S, n, groups,
@@ -383,9 +669,10 @@ int launch_bound(const AT* A, const OT* dpos, const OT* dneg, const OT* c, const
 
 template <typename AT, typename OT, bool JAC>
 int launch(const void* A, const void* dpos, const void* dneg, const void* c, const void* dc,
-           void* g, void* J, int B, int P, int L, int O, int T, int S, int n,
+           void* g, void* J, int B, int P, int L, int O, int T, int S, int n, int path, int* ran,
            cudaStream_t stream) {
-  if (B < 1 || P < 1 || L < 1 || O < 1 || T < 1 || S < 1 || (JAC && n < 1)) {
+  if (B < 1 || P < 1 || L < 1 || O < 1 || T < 1 || S < 1 || (JAC && n < 1) ||
+      (path != kStream && path != kSmallGrid && path != kAuto)) {
     return (int)cudaErrorInvalidValue;
   }
   if ((int64_t)L * O * T >= (int64_t)1 << 30 || B > 65535) return (int)cudaErrorInvalidConfiguration;
@@ -396,19 +683,36 @@ int launch(const void* A, const void* dpos, const void* dneg, const void* c, con
   const OT* dd = static_cast<const OT*>(dc);
   OT* gg = static_cast<OT*>(g);
   OT* jj = static_cast<OT*>(J);
-  // the fewest start groups, then the smallest bound that holds a group
-  constexpr int most = JAC ? 4 : 16;
-  const int groups = (S + most - 1) / most;
-  const int per_group = (S + groups - 1) / groups;
-#define BANK_LAUNCH(BOUND) \
-  return launch_bound<AT, OT, BOUND, JAC>(a, p, m, cc, dd, gg, jj, B, P, L, O, T, S, n, groups, \
-                                          stream)
-  if (per_group <= 1) BANK_LAUNCH(1);
-  if (per_group <= 4) BANK_LAUNCH(4);
-  if constexpr (!JAC) {
-    if (per_group <= 10) BANK_LAUNCH(10);
+  int device = 0, sms = 0;
+  int err = (int)cudaGetDevice(&device);
+  if (!err) err = sm_count(device, &sms);
+  if (err) return err;
+  const bool base_aligned = aligned(A, 16) && aligned(dpos, 16) && aligned(dneg, 16);
+  const int take = launch_path(path, B, P, L, O, T, S, JAC, sizeof(AT), sizeof(OT),
+                               base_aligned, sms);
+  if (ran) *ran = take;
+  if (take == kSmallGrid) {
+    const int most = small_starts(B, S, L, O, T, sms);
+    const int groups = (S + most - 1) / most;
+    const int per_group = (S + groups - 1) / groups;
+#define SMALL_LAUNCH(BOUND)                                                                    \
+  return launch_small<AT, OT, BOUND, JAC>(a, p, m, cc, dd, gg, jj, B, P, L, O, T, S, n, groups, \
+                                          device, stream)
+    if (per_group <= 1) SMALL_LAUNCH(1);
+    if (per_group <= 2) SMALL_LAUNCH(2);
+    SMALL_LAUNCH(kSmallStarts);
+#undef SMALL_LAUNCH
   }
-  BANK_LAUNCH(most);
+#define BANK_LAUNCH(BOUND) \
+  return launch_bound<AT, OT, BOUND, JAC>(a, p, m, cc, dd, gg, jj, B, P, L, O, T, S, n, device, \
+                                          stream)
+  const int bound = stream_bound(S, JAC);
+  if (bound == 1) BANK_LAUNCH(1);
+  if (bound == 4) BANK_LAUNCH(4);
+  if constexpr (!JAC) {
+    if (bound == 10) BANK_LAUNCH(10);
+  }
+  BANK_LAUNCH(JAC ? 4 : 16);
 #undef BANK_LAUNCH
 }
 
@@ -417,21 +721,19 @@ int launch(const void* A, const void* dpos, const void* dneg, const void* c, con
 template <bool JAC>
 int dispatch(const void* A, int a_dtype, const void* dpos, const void* dneg, int o_dtype,
              const void* c, const void* dc, void* g, void* J, int B, int P, int L, int O,
-             int T, int S, int n, void* stream) {
+             int T, int S, int n, int path, int* ran, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define BANK_TYPES(AT, OT) \
+  return launch<AT, OT, JAC>(A, dpos, dneg, c, dc, g, J, B, P, L, O, T, S, n, path, ran, st)
   if (o_dtype == 1) {
-    if (a_dtype == 0)
-      return launch<__nv_bfloat16, float, JAC>(A, dpos, dneg, c, dc, g, J, B, P, L, O, T, S, n, st);
-    if (a_dtype == 1)
-      return launch<float, float, JAC>(A, dpos, dneg, c, dc, g, J, B, P, L, O, T, S, n, st);
+    if (a_dtype == 0) BANK_TYPES(__nv_bfloat16, float);
+    if (a_dtype == 1) BANK_TYPES(float, float);
   } else if (o_dtype == 2) {
-    if (a_dtype == 0)
-      return launch<__nv_bfloat16, double, JAC>(A, dpos, dneg, c, dc, g, J, B, P, L, O, T, S, n, st);
-    if (a_dtype == 1)
-      return launch<float, double, JAC>(A, dpos, dneg, c, dc, g, J, B, P, L, O, T, S, n, st);
-    if (a_dtype == 2)
-      return launch<double, double, JAC>(A, dpos, dneg, c, dc, g, J, B, P, L, O, T, S, n, st);
+    if (a_dtype == 0) BANK_TYPES(__nv_bfloat16, double);
+    if (a_dtype == 1) BANK_TYPES(float, double);
+    if (a_dtype == 2) BANK_TYPES(double, double);
   }
+#undef BANK_TYPES
   return (int)cudaErrorInvalidValue;
 }
 
@@ -439,21 +741,32 @@ int dispatch(const void* A, int a_dtype, const void* dpos, const void* dneg, int
 
 extern "C" {
 
-// Value + k-Jacobian for any S >= 1 starts in one launch.
+// Value + k-Jacobian for any S >= 1 starts in one launch.  path: 0 streams
+// the bank, 1 takes the small-grid path where the shape allows it (else
+// streams), 2 chooses (collision_bank_grid.cuh, launch_path); *ran (when
+// not null) receives the path launched, 0 or 1.
 int armour_collision_value_jac_multi(const void* A, int a_dtype, const void* dpos,
                                      const void* dneg, int o_dtype, const void* c,
                                      const void* dc, void* g, void* J, int B, int P, int L,
-                                     int O, int T, int S, int n, void* stream) {
+                                     int O, int T, int S, int n, int path, int* ran,
+                                     void* stream) {
   return dispatch<true>(A, a_dtype, dpos, dneg, o_dtype, c, dc, g, J, B, P, L, O, T, S, n,
-                        stream);
+                        path, ran, stream);
 }
 
-// Values only for any S >= 1 starts in one launch.
+// Values only for any S >= 1 starts in one launch; path and ran as above.
 int armour_collision_values_multi(const void* A, int a_dtype, const void* dpos,
                                   const void* dneg, int o_dtype, const void* c, void* g, int B,
-                                  int P, int L, int O, int T, int S, void* stream) {
+                                  int P, int L, int O, int T, int S, int path, int* ran,
+                                  void* stream) {
   return dispatch<false>(A, a_dtype, dpos, dneg, o_dtype, c, nullptr, g, nullptr, B, P, L, O,
-                         T, S, 0, stream);
+                         T, S, 0, path, ran, stream);
+}
+
+// The empty kernel, one warp: the floor under any launch.
+int armour_collision_empty(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

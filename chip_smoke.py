@@ -20,7 +20,12 @@ Phases (each prints one JSON line; any failure exits non-zero):
               bit against launches at 8 and at 4 starts) and on the
               40-obstacle bank (bucket 16); then small random banks at T=32
               (staged path) and at a slab whose rows are not 16-byte aligned
-              (direct path, 9 starts: one launch)
+              (direct path, 9 starts: one launch).  Every check also runs both
+              launch paths (streaming and small-grid, where the bank's rows
+              allow the small-grid one) and holds them to the wrapper's
+              output bit for bit; every timed row names the path its launch
+              reported and carries the graph time of an empty kernel
+              (launch_floor) beside its bound
  3b. rollout_kernel
               the rollout kernel (csrc/rollout.cu: the whole move in one
               launch, one block of eight warps per world) against
@@ -39,9 +44,12 @@ Phases (each prints one JSON line; any failure exits non-zero):
               per obstacle bucket (the build graph and the solver's inner
               graph kept), first call and 5 replays
               held to the eager plan to the bit with 65 launches each, the
-              bucket sequence 8 -> 16 -> 8 through the cache, and the main
-              kernel on the batch-1 bank; then the collision check of the
-              returned plans (values_multi and single-start value_jac)
+              bucket sequence 8 -> 16 -> 8 through the cache, the main
+              kernel on the batch-1 bank, and the collision check of a
+              batch-1 plan (values_multi and single-start value_jac on the
+              batch-1 bank, one launch each, small-grid path); then the
+              collision check of the returned plans (values_multi and
+              single-start value_jac)
   5. modes    one plan_batch at the same width for traj_type="orig", with
               12 starts (one launch per pass), for smooth collision (tau =
               1e-3; also at 12 starts, a pool of 26: one launch) and with
@@ -1430,12 +1438,20 @@ def latency_phase(torch, dev, check_and_time, rows, probs8, probs40, n_replays=5
     cache, the bucket sequence 8 -> 16 -> 8.  Every plan is held to the
     eager ``plan`` (op by op, no program) to the bit (k, feasible,
     max_violation), every replay to 65 main-kernel launches.  Then the main
-    kernel on the batch-1 bank against its plain version.  Each path resets
+    kernel on the batch-1 bank against its plain version, and the collision
+    check of world 0's plan on that bank (the values-only and single-start
+    kernels, one launch each) and those two kernels against their plain
+    versions.  Returns the three rows' names.  Each path resets
     the launch counts just before it and reads them just after.  ``dev``,
     ``n_replays`` and ``T`` exist to rehearse the phase at a small size on
     the CPU (where the program runs op by op)."""
     from armour_tpu_torch.collision import kernels
-    from armour_tpu_torch.collision.zonotope import ObstacleSet, kernel_layout
+    from armour_tpu_torch.collision.zonotope import (
+        ObstacleSet,
+        collision_constraints_with_jac,
+        collision_values_multi,
+        kernel_layout,
+    )
     from armour_tpu_torch.config import PlannerConfig
     from armour_tpu_torch.planner.armour import ArmourPlanner, PlanProgram
     from armour_tpu_torch.robots.kinova import kinova_gen3_spec
@@ -1537,7 +1553,37 @@ def latency_phase(torch, dev, check_and_time, rows, probs8, probs40, n_replays=5
                    kernels.tie_mask(hp.A, hp.dpos, hp.dneg, c, tol=1e-5), name, timed=True)
     rows[name]["replaces"] = "armour_tpu/collision/pallas_kernel.py:166"
     rows[name]["launches"] = seq[1]["launches"]
-    return name
+
+    # the collision check of world 0's plan on the same bank, as a user runs
+    # it after plan(): the values-only and single-start kernels, one launch each
+    plan0 = eager[0][0]
+    k_chk = torch.where(plan0.feasible, plan0.k, 0.0)[None, None]        # (1, 1, n)
+    centers, _, dcenters = prob.links.slice_with_jac_multi(k_chk)
+    kernels.reset_launch_counts()
+    g_multi = collision_values_multi(hp, centers)
+    g_one, _ = collision_constraints_with_jac(hp, centers[:, 0], dcenters[:, 0])
+    if on_card:
+        torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts == {main_name: 0, "fused_collision_values_multi": 1,
+                      "fused_collision_value_jac": 1}, counts
+    assert torch.equal(g_multi[:, 0], g_one), "batch-1 check: the two check kernels disagree"
+    emit({"phase": "check_path_batch1", "launches": counts, "feasible": bool(plan0.feasible),
+          "max_collision_value": float(g_multi.max())})
+    c1, dc1 = kernel_layout(centers, dcenters)
+    uniq1 = kernels.tie_mask(hp.A, hp.dpos, hp.dneg, c1, tol=1e-5)
+    name_v = "fused_collision_values_multi[batch1]"
+    name_1 = "fused_collision_value_jac[batch1]"
+    check_and_time(hp, f32, 2e-6, kernels.fused_collision_values_multi, (hp.A, hp.dpos, hp.dneg, c1),
+                   False, uniq1, name_v, timed=True)
+    check_and_time(hp, f32, 2e-6, kernels.fused_collision_value_jac,
+                   (hp.A, hp.dpos, hp.dneg, c1[:, 0].contiguous(), dc1[:, 0].contiguous()), True,
+                   uniq1, name_1, timed=True)
+    rows[name_v]["replaces"] = "armour_tpu/collision/pallas_kernel.py:225"
+    rows[name_1]["replaces"] = "armour_tpu/collision/pallas_kernel.py:85"
+    rows[name_v]["launches"] = counts["fused_collision_values_multi"]
+    rows[name_1]["launches"] = counts["fused_collision_value_jac"]
+    return [name, name_v, name_1]
 
 
 def row0(res):
@@ -1922,6 +1968,11 @@ def main() -> int:
     B, S, n = 128, cfg.nlp_num_starts, spec.n_factors
 
     # ---- 3. kernels against their plain versions -------------------------
+    # the floor under any launch: an empty kernel, 20 launches in one graph
+    floor_ms = graph_ms(lambda: kernels._launch_empty())
+    emit({"phase": "launch_floor", "grid": [1, 32], "graph_ms": floor_ms,
+          "ms": time_ms(torch, kernels._launch_empty),
+          "sm_count": torch.cuda.get_device_properties(0).multi_processor_count})
     probs8 = problem_set(cfg, B, n_obs=8, seed=0, device=dev)
     K_np = np.random.default_rng(1).uniform(-0.9, 0.9, (B, S, n))
     S_pool = 2 * S + 2   # the smooth-mode verification pool: ONE values-only launch
@@ -1939,11 +1990,13 @@ def main() -> int:
 
     def check_and_time(hp, dtype, tol, kern, args, jac, uniq, name, timed, table=rows):
         """Hold kern(*args) against its plain version (Jacobians on the slots
-        `uniq` whose winner is no tie) and note the error in `table`; with
-        `timed`, add the row's times."""
+        `uniq` whose winner is no tie) and note the error in `table`; hold
+        both launch paths to the wrapper's output bit for bit; with `timed`,
+        add the row's times."""
         plain = kernels.PLAIN[kern]
         got, ref = kern(*args), plain(*args)
         torch.cuda.synchronize()
+        path = paths_check(kern, args, got, name, dtype)
         single = kern is kernels.fused_collision_value_jac
         if jac:
             gk, Jk = got
@@ -1961,6 +2014,7 @@ def main() -> int:
         ok = err_g <= tol and err_J <= tol and bool(torch.isfinite(gk if jac else got).all())
         row = table.setdefault(name, {})
         row[f"max_abs_err_{str(dtype)[6:]}"] = max(err_g, err_J)
+        row["path"] = path
         emit({"phase": "kernel_check", "kernel": name, "dtype": str(dtype)[6:],
               "A_dtype": str(hp.A.dtype)[6:], "shape_bank": list(hp.A.shape),
               "err_g": err_g, "err_J_tie_masked": err_J, "atol": tol,
@@ -1986,12 +2040,46 @@ def main() -> int:
             "plain_graph_ms": graph_ms(lambda: plain(*args), reps=3),
             "bytes": moved, "ops": ops,
             "bound_ms": max(b_mem, b_ops), "bound_by": "bytes" if b_mem >= b_ops else "operations",
-            "library_ms": None,
+            "library_ms": None, "floor_ms": floor_ms,
             "shapes": {"B": Bk, "S": Sx, "n": nk, "P": P, "L": L, "O": O, "T": T},
         })
         emit({"phase": "kernel_time", **{k: row[k] for k in
-              ("name", "ms", "plain_ms", "graph_ms", "plain_graph_ms", "bytes", "bound_ms",
-               "bound_by", "shapes")}})
+              ("name", "path", "ms", "plain_ms", "graph_ms", "plain_graph_ms", "bytes",
+               "bound_ms", "floor_ms", "bound_by", "shapes")}})
+
+    def bit_view(x):
+        return x.contiguous().view(torch.int32 if x.dtype == torch.float32 else torch.int64)
+
+    def paths_check(kern, args, got, name, dtype):
+        """The launch's own choice and both forced paths, through the private
+        launchers (no count), against the wrapper's output bit for bit;
+        returns the path the launch chose.  A bank whose rows the small-grid
+        path cannot stage streams when that path is forced: it is named, and
+        not counted as a check of both paths."""
+        single = kern is kernels.fused_collision_value_jac
+        want = got if isinstance(got, tuple) else (got,)
+        same, ran = {}, {}
+        for path in (None, *kernels.PATHS):
+            if single:
+                g1, J1, ran[path] = kernels._launch_value_jac_multi(
+                    *args[:3], args[3][:, None].contiguous(), args[4][:, None].contiguous(),
+                    path=path)
+                out = (g1[:, 0], J1[:, 0])
+            elif kern is kernels.fused_collision_value_jac_multi:
+                *out, ran[path] = kernels._launch_value_jac_multi(*args, path=path)
+            else:
+                *out, ran[path] = kernels._launch_values_multi(*args, path=path)
+            torch.cuda.synchronize()
+            same[path or "auto"] = all(torch.equal(bit_view(a), bit_view(b))
+                                       for a, b in zip(out, want))
+        both = ran["small"] == "small"
+        emit({"phase": "kernel_paths", "kernel": name, "dtype": str(dtype)[6:],
+              "chosen": ran[None], "bits_equal": same, "both_paths": both,
+              **({} if both else {"small_path": "not taken: the bank's rows are not "
+                                                "16-byte aligned or its tile exceeds a block"})})
+        assert all(same.values()), f"{name}: the launch paths disagree with the wrapper {same}"
+        assert ran["stream"] == "stream", ran
+        return ran[None]
 
     def grouping_check(dtype, tol, args, g, J, split):
         """One launch at S starts against two launches of the same kernel,
@@ -2104,6 +2192,7 @@ def main() -> int:
 
     # ---- 3b. the rollout kernel against its plain version ---------------
     rollout_phase(torch, dev, rows, peak_bw, peak_f32, ptxas_rows=rptxas)
+    rows["fused_rollout"].update(floor_ms=floor_ms, path=None)   # one path: a block per world
     torch.cuda.empty_cache()
 
     rows["fused_collision_value_jac_multi"]["replaces"] = "armour_tpu/collision/pallas_kernel.py:166"
@@ -2174,7 +2263,7 @@ def main() -> int:
     _, _, counts40 = run_point(probs40, "40obs")
     rows[wide_name]["launches"] = counts40[main_name]
 
-    batch1_row = latency_phase(torch, dev, check_and_time, rows, probs8, probs40)
+    batch1_rows = latency_phase(torch, dev, check_and_time, rows, probs8, probs40)
 
     # the collision check of the returned plans: the user-level check path,
     # through the value-only and single-start kernels
@@ -2462,10 +2551,11 @@ def main() -> int:
     # ---- tail ------------------------------------------------------------
     order = ("fused_collision_value_jac_multi", "fused_collision_values_multi",
              "fused_collision_value_jac", "fused_rollout", pool_name, many_name, many_pool_name,
-             wide_name, batch1_row, *ext_rows,
+             wide_name, *batch1_rows, *ext_rows,
              battery_row, *tool_rows)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "graph_ms", "plain_graph_ms", "bound_ms", "bound_by", "library_ms")
+            "plain_ms", "graph_ms", "plain_graph_ms", "bound_ms", "bound_by", "library_ms",
+            "floor_ms", "path")
     table = []
     for name in order:
         r = dict(rows[name], max_abs_err=rows[name]["max_abs_err_float32"])

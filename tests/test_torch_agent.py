@@ -35,6 +35,18 @@ SIM_KW = dict(t_move=0.5, plant_dt=5e-3, check_dt=0.01)
 B = 2
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's tensors here are a few worlds wide: one intra-op thread
+    runs them as fast as eight, and leaves the cores to the JAX compiles
+    and to the other test workers (restored after the module)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+
 def _case(traj_type, seed=0):
     """numpy fields of B worlds: start state, trajectory, true parameters."""
     rng = np.random.default_rng(seed)

@@ -8,7 +8,7 @@ JAX side compiles each rollout for most of a minute.
 
 import pytest
 
-from test_torch_agent import check_rollout_matches_jax
+from test_torch_agent import check_rollout_matches_jax, one_torch_thread  # noqa: F401 (a fixture)
 
 
 @pytest.mark.parametrize("controller,traj_type", [

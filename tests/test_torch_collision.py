@@ -53,6 +53,18 @@ ATOL = {jnp.float64: 1e-12, jnp.float32: 2e-6}
 TORCH_DTYPE = {jnp.float64: torch.float64, jnp.float32: torch.float32}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's tensors here are a few worlds wide: one intra-op thread
+    runs them as fast as eight, and leaves the cores to the JAX compiles
+    and to the other test workers (restored after the module)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+
 def _build_problem(rng, dtype, n_obs=3):
     """`test_pallas.py::_build_problem` at a chosen dtype."""
     spec = jax_kinova_gen3_spec()

@@ -14,12 +14,25 @@ kernel's direct path instead of its staged one), pair counts other than 36
 (every instantiated bound, and the start groups beyond 4 with the Jacobian
 and 16 without: still one launch per call, a start's bits the same at any
 S), and banks with NaN offsets (a pair with a NaN never
-wins; a slot with none usable keeps g = 1e30, J = 0).  Tolerances: float32 offsets atol 2e-6 and
+wins; a slot with none usable keeps g = 1e30, J = 0).  Each shape whose
+rows allow it also goes through both launch paths, forced (the streaming
+one and the small-grid one of the batch-1 and grasp banks), which must give
+the same bits; the two shapes whose rows are not 16-byte aligned report the
+streaming path when the small-grid one is forced; a tie across the
+small-grid path's pair groups keeps the first pair; a fresh process makes
+its first small-grid launch inside a CUDA graph capture; and a fresh
+process captures a batch-1 plan program while the small-grid path is the
+one chosen.  Tolerances: float32 offsets atol 2e-6 and
 float64 atol 1e-12 on values of order 1 (the kernel fuses multiply-adds
 where the plain version rounds each product); Jacobians on the slots
 whose winning piece is unique by more than 1e-5 (elsewhere either piece
 is a valid subgradient).
 """
+
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -53,7 +66,14 @@ SHAPES = [  # B, S, n, L, O, T and, where it is not 36, P
     (2, 4, 6, 6, 8, 128),        # the planar 6-link arm: L = n = 6
     (2, 4, 7, 7, 4, 128),        # a cp = 2 shard of 8 obstacle slots: O = 4
     (1, 4, 7, 7, 20, 128),       # a cp = 2 shard of 40 slots: O = 20, staged (20 % 4 = 0)
+    (1, 4, 7, 7, 8, 128),        # the batch-1 plan's bank: the small-grid path
+    (1, 4, 7, 7, 8, 64),         # the grasp example's bank
+    (1, 4, 7, 7, 16, 128),       # the batch-1 bank at bucket 16
 ]
+# rows of L*O*T elements not 16-byte aligned in any type: the small-grid path
+# cannot stage them, and a launch that forces it streams
+STREAM_ONLY = [(2, 4, 7, 7, 3, 5), (1, 10, 2, 5, 3, 33, 3)]
+SMALL_TOO = [s for s in SHAPES if s not in STREAM_ONLY]
 ATOL = {torch.float32: 2e-6, torch.float64: 1e-12}
 
 
@@ -187,3 +207,190 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(card):
         kernels.fused_collision_values_multi(A, dpos.cpu(), dneg, c)
     with pytest.raises(TypeError):
         kernels.fused_collision_values_multi(A, dpos, dneg, c.double())
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32 if x.dtype == torch.float32 else torch.int64)
+
+
+def _paths(A, dpos, dneg, c, dc, path):
+    """Value + Jacobian, values only and the S = 1 launch through one path:
+    the outputs and the paths the three launches report."""
+    g, J, p = kernels._launch_value_jac_multi(A, dpos, dneg, c, dc, path=path)
+    gv, pv = kernels._launch_values_multi(A, dpos, dneg, c, path=path)
+    g1, J1, p1 = kernels._launch_value_jac_multi(A, dpos, dneg, c[:, :1].contiguous(),
+                                                 dc[:, :1].contiguous(), path=path)
+    torch.cuda.synchronize()
+    return (g, J, gv, g1, J1), {p, pv, p1}
+
+
+@pytest.mark.parametrize("nan", [False, True], ids=["finite", "nan"])
+@pytest.mark.parametrize("shape", SMALL_TOO, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("types", TYPES, ids=lambda t: f"{str(t[0])[6:]}-{str(t[1])[6:]}")
+def test_paths_equal_to_the_bit(card, shape, types, nan):
+    """The streaming and the small-grid path give the same bits for value +
+    Jacobian, values only and S = 1, and each is within atol of the plain
+    version."""
+    A, dpos, dneg, c, dc = _bank(shape, *types, seed=sum(shape) + 1, device=card)
+    if nan:
+        _poison(dpos, dneg, seed=sum(shape) + 1)
+    stream, ran_stream = _paths(A, dpos, dneg, c, dc, "stream")
+    small, ran_small = _paths(A, dpos, dneg, c, dc, "small")
+    assert (ran_stream, ran_small) == ({"stream"}, {"small"})
+    for a, b in zip(stream, small):
+        assert torch.equal(_bits(a), _bits(b))
+    g, J, gv, g1, _ = small
+    gp, Jp = kernels.value_jac_multi_plain(A, dpos, dneg, c, dc)
+    uniq = kernels.tie_mask(A, dpos, dneg, c, tol=1e-5)
+    atol = ATOL[types[1]]
+    assert (g - gp).abs().max().item() <= atol
+    assert ((J - Jp).abs() * uniq[:, :, None]).max().item() <= atol
+    assert torch.equal(gv, g) and torch.equal(g1, g[:, :1])
+
+
+@pytest.mark.parametrize("shape", STREAM_ONLY, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("types", TYPES, ids=lambda t: f"{str(t[0])[6:]}-{str(t[1])[6:]}")
+def test_forcing_the_small_path_where_rows_are_not_aligned_streams(card, shape, types):
+    A, dpos, dneg, c, dc = _bank(shape, *types, seed=sum(shape) + 1, device=card)
+    stream, ran_stream = _paths(A, dpos, dneg, c, dc, "stream")
+    forced, ran_forced = _paths(A, dpos, dneg, c, dc, "small")
+    _, ran_auto = _paths(A, dpos, dneg, c, dc, None)
+    assert ran_stream == ran_forced == ran_auto == {"stream"}
+    for a, b in zip(stream, forced):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("case", [
+    ((1, 4, 7, 7, 8, 128), "small"), ((1, 4, 7, 7, 8, 64), "small"),
+    ((1, 4, 7, 7, 16, 128), "small"), ((128, 4, 7, 7, 8, 128), "stream"),
+], ids=lambda c: "x".join(map(str, c[0])))
+def test_launch_reports_the_path_it_chose(card, case):
+    """The batch-1, grasp and bucket-16 banks choose the small-grid path on
+    an H100 (132 SMs), for all three launches; the main path's bank streams."""
+    if torch.cuda.get_device_properties(card).multi_processor_count != 132:
+        pytest.skip("the crossover is pinned at an H100's 132 SMs")
+    shape, path = case
+    A, dpos, dneg, c, dc = _bank(shape, torch.bfloat16, torch.float32, seed=5, device=card)
+    _, ran = _paths(A, dpos, dneg, c, dc, None)
+    assert ran == {path}
+
+
+@pytest.mark.parametrize("path", ["stream", "small"])
+def test_first_maximum_wins_across_pair_groups(card, path):
+    """An exact tie between pair 0 and pair 35 (the small-grid path's first
+    and last pair groups) keeps pair 0; where pair 0 has a NaN the tie goes
+    to pair 35, and where every pair but 20 has one, to pair 20."""
+    A, dpos, dneg, c, dc = _bank((1, 2, 3, 2, 4, 64), torch.float64, torch.float64, seed=3,
+                                 device=card)
+    A.zero_()
+    A[:, :, 2] = 1.0                        # every pair: normal (0, 0, 1)
+    A[:, 0, 2] = -1.0                       # pair 0: normal (0, 0, -1)
+    dpos.fill_(10.0)
+    dneg.fill_(10.0)
+    dneg[:, 0] = 0.0                        # pair 0: vn = -(-0.5) - 0 = 0.5
+    dneg[:, 35] = -1.0                      # pair 35: vn = -0.5 + 1 = 0.5, a tie
+    dpos[:, 20] = 0.25                      # pair 20: vp = 0.5 - 0.25 = 0.25
+    c.zero_()
+    c[:, :, 2] = 0.5
+    g, J, ran = kernels._launch_value_jac_multi(A, dpos, dneg, c, dc, path=path)
+    torch.cuda.synchronize()
+    assert ran == path
+    assert torch.all(g == -0.5)
+    # pair 0 won on its - branch: signed normal +A = (0, 0, -1)
+    torch.testing.assert_close(J, -dc[:, :, :, 2, :, None, :].expand_as(J), rtol=0, atol=0)
+    dneg[:, 0, :, 1, 3] = torch.nan         # (o=1, t=3): pair 0 unusable there
+    dpos[:, :, 1, 2, 5] = torch.nan         # (l=1, o=2, t=5): every pair unusable but 20
+    dpos[:, 20, 1, 2, 5] = 0.25
+    dneg[:, :, 1, 2, 5] = torch.where(torch.arange(36, device=card) == 20, 10.0, torch.nan)[None]
+    g2, J2, _ = kernels._launch_value_jac_multi(A, dpos, dneg, c, dc, path=path)
+    gv2, _ = kernels._launch_values_multi(A, dpos, dneg, c, path=path)
+    torch.cuda.synchronize()
+    g2p, J2p = kernels.value_jac_multi_plain(A, dpos, dneg, c, dc)
+    assert torch.equal(g2, g2p) and torch.equal(J2, J2p) and torch.equal(gv2, g2)
+    assert float(g2[0, 0, 1, 2, 5]) == -0.25
+    # pair 35 won at (0, 1, 3) on its - branch: signed normal +A = (0, 0, 1)
+    torch.testing.assert_close(J2[..., 0, 1, 3], dc[:, :, :, 2, 0, 3], rtol=0, atol=0)
+
+
+def _fresh_process(script):
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root))
+    proc = subprocess.run([sys.executable, "-c", script], cwd=root, env=env, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("ok"), proc.stdout
+
+
+def test_first_small_grid_launch_inside_a_capture_in_a_fresh_process(card):
+    """A fresh process whose first launches of the small-grid kernels (and
+    so the first raise of their shared-memory limit) are inside a CUDA graph
+    capture in global mode: the graph replays to the streaming path's bits."""
+    _fresh_process("""
+import torch
+from armour_tpu_torch.collision import kernels
+kernels._lib()                         # built and loaded; no kernel of it launched yet
+gen = torch.Generator(device="cuda").manual_seed(0)
+def randn(*shape):
+    return torch.randn(shape, generator=gen, device="cuda")
+A = randn(1, 36, 3, 7, 8, 128)
+A = (A / A.norm(dim=2, keepdim=True)).to(torch.bfloat16)
+dpos, dneg = randn(1, 36, 7, 8, 128), randn(1, 36, 7, 8, 128)
+c, dc = randn(1, 4, 3, 7, 128), randn(1, 4, 7, 3, 7, 128)
+torch.cuda.synchronize()
+graph = torch.cuda.CUDAGraph()
+with torch.cuda.graph(graph, capture_error_mode="global"):
+    g, J, ran = kernels._launch_value_jac_multi(A, dpos, dneg, c, dc, path="small")
+    gv, ran_v = kernels._launch_values_multi(A, dpos, dneg, c, path="small")
+assert (ran, ran_v) == ("small", "small"), (ran, ran_v)
+graph.replay()
+g2, J2, _ = kernels._launch_value_jac_multi(A, dpos, dneg, c, dc, path="stream")
+gv2, _ = kernels._launch_values_multi(A, dpos, dneg, c, path="stream")
+torch.cuda.synchronize()
+assert torch.equal(g, g2) and torch.equal(J, J2) and torch.equal(gv, gv2)
+print("ok")
+""")
+
+
+def test_plan_program_captures_the_small_grid_path_in_a_fresh_process(card):
+    """A fresh process: a plan program (captured at its first call) replays
+    with 65 launches, equal to the eager plan to the bit, and a launch on a
+    bank of the plan's shape reports the small-grid path."""
+    script = """
+import numpy as np, torch
+from armour_tpu_torch.collision import kernels
+from armour_tpu_torch.collision.zonotope import ObstacleSet
+from armour_tpu_torch.config import PlannerConfig
+from armour_tpu_torch.planner.armour import ArmourPlanner
+from armour_tpu_torch.problems import problem_set
+from armour_tpu_torch.robots.kinova import kinova_gen3_spec
+
+cfg = PlannerConfig()
+pl = ArmourPlanner(kinova_gen3_spec(), cfg, torch.float32, device="cuda")
+probs = problem_set(cfg, 3, n_obs=8, seed=0, device="cuda")
+passes = cfg.nlp_outer_iters * cfg.nlp_inner_iters + 1
+for i in range(3):
+    world = (probs.q0[i], probs.qd0[i], probs.qdd0[i], probs.q_des[i],
+             ObstacleSet(probs.zonos[i], probs.masks[i]))
+    k_rand = pl.random_starts(1, torch.Generator(device="cuda").manual_seed(i))[0]
+    # the kept plan first: the process's first launch is its capture's warm-up
+    kernels.reset_launch_counts()
+    res = pl.plan(*world, k_rand=k_rand)
+    torch.cuda.synchronize()
+    if i > 0:      # a replay
+        assert kernels.launch_counts()["fused_collision_value_jac_multi"] == passes
+    ref = pl.plan(*world, k_rand=k_rand, eager=True)
+    for f in ("k", "feasible", "max_violation"):
+        a, b = getattr(res, f).cpu(), getattr(ref, f).cpu()
+        assert torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                           b.view(torch.int32) if b.dtype == torch.float32 else b), (i, f)
+stats = pl.programs.stats()
+assert (stats["misses"], stats["hits"]) == (1, 2), stats
+args = pl.plan_args(*world, k_rand=k_rand)[1]
+bank = pl.build_fixed(*args[:3], *args[4:6]).hp
+S, T = cfg.nlp_num_starts, cfg.num_time_steps
+c = torch.zeros((1, S, 3, 7, T), device="cuda")
+dc = torch.zeros((1, S, 7, 3, 7, T), device="cuda")
+assert kernels._launch_value_jac_multi(bank.A, bank.dpos, bank.dneg, c, dc)[2] == "small"
+print("ok", stats)
+"""
+    _fresh_process(script)

@@ -30,6 +30,18 @@ FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "golden_slices.npz
 RTOL, ATOL = 1e-9, 1e-10
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's tensors here are a few worlds wide: one intra-op thread
+    runs them as fast as eight, and leaves the cores to the JAX compiles
+    and to the other test workers (restored after the module)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+
 @pytest.fixture(scope="module")
 def port_sets():
     """Reachable sets of the port for the golden start state (B = 1)."""
