@@ -4,7 +4,7 @@ the same C interface, inside one process on one card.
     python -m armour_tpu_torch.bench_bank [--other NAME=SOURCE.cu[,NVCC_FLAG...]]...
                                           [--batch 128 ...] [--obstacles 8 ...]
                                           [--time-steps 128 ...] [--paths auto small stream]
-                                          [--seed 0] [--reps 20] [--ptxas DIR]
+                                          [--seed 0] [--reps 20] [--ptxas DIR] [--sass]
 
 Kernel times differ by about 10 % from one machine to the next, so two
 versions are compared only here: the tree's kernel and every ``--other``
@@ -31,7 +31,18 @@ through each path named: ``auto`` is the launch's own choice, ``small`` and
 outputs are held to the tree's auto path, bit by bit.  Every ``--other``
 source has this tree's C interface (the path argument and the reported
 path); `kernels.bind` refuses one without it.  With ``--ptxas DIR`` the
-``-Xptxas -v`` log of every build is written there.
+``-Xptxas -v`` log of every build is written there.  Each row names the
+tree's streaming grid (`kernels.stream_grid`: start groups, groups a block,
+the instantiation's start bound, obstacles a thread, blocks).
+
+``--sass`` reads every build's streaming instantiations with bf16 A and f32
+offsets (`cuobjdump -sass`): the staged pair loop's instructions per pair
+for one thread, by opcode, and the lane instructions per (slot, start,
+pair), one JSON line each; every row of the tree then gains ``issue_ms``,
+the time the card needs to issue a consumer's loop for the row's (slot,
+start, pair) items at 128 lanes a clock on each SM at the card's maximum SM
+clock (the producer's refills and the epilogue left out), beside the byte
+bound.
 """
 
 from __future__ import annotations
@@ -39,6 +50,7 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -62,6 +74,96 @@ def nvidia_smi() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock, from nvidia-smi."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
+
+
+def pair_loop_counts(library) -> dict:
+    """The staged pair loop of each streaming instantiation (bf16 A, f32
+    offsets) of a built library, from its SASS: the smallest span of a
+    backward branch that holds a barrier wait (SYNCS.PHASECHK) and shared
+    loads (LDS) and no EXIT (a wait's retry, placed after the kernel's end,
+    branches back into the loop).  Inside it, the largest range that a
+    forward branch skips around each bulk copy (UBLKCP; five a refill) and
+    that holds no shared load is the producer's, issued by one warp of the
+    block, and is counted apart.  For each readable name: the pairs one pass
+    of the loop takes, one pair's instructions for one thread (a
+    consumer's, and the producer's besides) and the consumer's opcodes, and
+    the lane instructions per (slot, start, pair): a consumer's pair over
+    the thread's obstacles times the instantiation's start bound."""
+    cuobjdump = Path(kernels._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(library)], capture_output=True, text=True,
+                          check=True).stdout
+    funcs, name, labels = {}, None, {}
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = kernels.kernel_name(m[1])
+            funcs[name], labels = [], {}
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m and name:
+            labels[m[1]] = None                          # the next instruction's address
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);", line)
+        if m and name:
+            addr = int(m[1], 16)
+            for k in [k for k, v in labels.items() if v is None]:
+                labels[k] = addr
+            target = (re.search(r"`\((\.L_x_\d+)\)|\b(0x[0-9a-f]+)\b", m[3])
+                      if m[2].startswith("BRA") else None)
+            funcs[name].append((addr, m[2], target and (target[1] or target[2]), labels))
+    rows = {}
+    for name, ins in funcs.items():
+        m = re.fullmatch(r"bank_pass<bf16,f32,S<=(\d+),(values|value\+jac)(?:,(\d+) groups)?>", name)
+        if not m:
+            continue
+        branches = []                                    # (from, to) of every resolved branch
+        for addr, op, target, labs in ins:
+            to = None if target is None else (labs.get(target) if target.startswith(".L")
+                                              else int(target, 16))
+            if to is not None:
+                branches.append((addr, to))
+        loop = None
+        for addr, to in branches:
+            if to > addr:
+                continue
+            ops = [o for a, o, *_ in ins if to <= a <= addr]
+            if (any(o.startswith("SYNCS.PHASECHK") for o in ops) and any(o.startswith("LDS") for o in ops)
+                    and not any(o.startswith("EXIT") for o in ops)
+                    and (loop is None or addr - to < loop[1] - loop[0])):
+                loop = (to, addr)
+        if loop is None:
+            continue
+        # for each copy, the largest forward skip around it that holds no shared load
+        skips = [(f, t) for f, t in branches if loop[0] <= f < t <= loop[1]
+                 and not any(f < a < t and o.startswith("LDS") for a, o, *_ in ins)]
+        producer = set()
+        for a, o, *_ in ins:
+            around = [(f, t) for f, t in skips if f < a < t] if o.startswith("UBLKCP") else []
+            if around:
+                f, t = max(around, key=lambda ft: ft[1] - ft[0])
+                producer.update(x for x, *_ in ins if f < x < t)
+        span = [(a, o) for a, o, *_ in ins if loop[0] <= a <= loop[1]]
+        pairs = max(1, sum(o.startswith("UBLKCP") for _, o in span) // 5)
+        consumer = [o for a, o in span if a not in producer]
+        ops = {}
+        for o in consumer:
+            ops[o] = ops.get(o, 0) + 1
+        bound, jac = int(m[1]), m[2] != "values"
+        v = kernels.grid_model().grid_obstacles_per_thread(bound, jac, 4, m[3] is not None)
+        rows[name] = {"pairs_per_pass": pairs, "per_pair": len(consumer) / pairs,
+                      "producer_per_pair": len(producer) / pairs,
+                      "obstacles_per_thread": v, "start_bound": bound,
+                      "lane_instructions_per_item": len(consumer) / pairs / (v * bound),
+                      "opcodes_per_pair": {k: c / pairs for k, c in
+                                           sorted(ops.items(), key=lambda kv: -kv[1])}}
+    return rows
 
 
 def time_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -121,6 +223,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--ptxas", type=Path, default=None, help="directory for the ptxas logs")
+    ap.add_argument("--sass", action="store_true", help="the pair loops' SASS and issue times")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench_bank: no CUDA device is available", file=sys.stderr)
@@ -150,6 +253,14 @@ def main(argv=None) -> int:
                           "max_registers": max((r["registers"] for r in summary), default=None),
                           "spilling": [r for r in summary if r["spill_stores"] or r["spill_loads"]]}),
               flush=True)
+        if args.sass:
+            loops = pair_loop_counts(info["path"])
+            registers = {r["kernel"]: r["registers"] for r in summary}
+            for kernel, row in loops.items():
+                print(json.dumps({"sass": name, "kernel": kernel,
+                                  "registers": registers.get(kernel), **row}), flush=True)
+            if name == "tree":
+                args.tree_loops, args.clock_hz = loops, sm_clock_hz()
     if "tree" not in versions:
         versions = {"tree": (libs["tree"], None), **versions}
     floor = graph_ms(lambda: kernels._launch_empty(lib=libs["tree"]))
@@ -218,6 +329,19 @@ def bench_bank(args, smi, versions, floor, spec, cfg, B, n):
             bits[name] = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
                              for a, b in zip(out, ref))
         moved = sum(t.numel() * t.element_size() for t in (*tensors, *ref))
+        Bk, P, _, L, Ok, T = tensors[0].shape
+        Sk, jac = tensors[3].shape[1], len(ref) == 2
+        grid = kernels.stream_grid(Sk, L, Ok, T, jac, ref[0].element_size())
+        issue = {}
+        if args.sass:
+            groups = grid["instantiated_groups"]
+            kernel = (f"bank_pass<bf16,f32,S<={grid['bound']},{'value+jac' if jac else 'values'}"
+                      + (f",{groups} groups>" if groups > 1 else ">"))
+            per_item = args.tree_loops[kernel]["lane_instructions_per_item"]
+            items = Bk * Sk * P * L * Ok * T
+            issue = {"issue_kernel": kernel, "lane_instructions_per_item": per_item,
+                     "issue_ms": items * per_item / (sms * 128 * args.clock_hz) * 1e3,
+                     "sm_clock_hz": args.clock_hz}
         ms, in_graph = {}, {}
         for name in order:
             lib, path = versions[name]
@@ -228,6 +352,7 @@ def bench_bank(args, smi, versions, floor, spec, cfg, B, n):
         print(json.dumps({"row": row, "card": smi, "bank": list(hp.A.shape), "bytes": moved,
                           "bound_ms": moved / PEAK_BYTES_PER_S * 1e3, "floor_ms": floor,
                           "auto_path": paths["tree"], "paths": paths, "sms": sms,
+                          "tree_stream_grid": grid, **issue,
                           "order": order, "ms": ms, "graph_ms": in_graph,
                           "max_abs_g_diff_to_tree": diff, "bits_equal_to_tree": bits,
                           "refused": refused}),

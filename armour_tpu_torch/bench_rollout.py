@@ -45,7 +45,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .bench_bank import nvidia_smi, time_ms
+from .bench_bank import nvidia_smi, sm_clock_hz, time_ms
 from .collision import kernels
 from .config import PlannerConfig, SimConfig
 from .robots.kinova import kinova_gen3_spec
@@ -131,13 +131,6 @@ def run_time_source(src: str) -> str:
     if n != 1:
         raise ValueError(f"{n} matches of the Kinova's launch {_KINOVA_LAUNCH!r}")
     return out
-
-
-def sm_clock_hz() -> float:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
-                          "--format=csv,noheader,nounits"],
-                         capture_output=True, text=True, timeout=60, check=True)
-    return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
 class Version:

@@ -16,8 +16,11 @@ tensors go to the kernel, or the wrapper raises.  There is no fallback.
 Each wrapper counts its kernel launches in ``<wrapper>.launches``.  Any
 number of starts is one launch, as the Pallas kernels take any S in one
 ``pallas_call``: above 4 starts with the Jacobian (16 without) the kernel
-splits them into groups whose blocks run side by side and stream the same
-bank, and each group writes its starts at their own offsets in the outputs.
+splits them into start groups, each writing its starts at their own
+offsets in the outputs.  With the Jacobian a group holds 4 starts and is a
+block, and the blocks of one tile stream the same bank side by side; values
+only, groups of up to 16 starts whose sizes differ by at most one share one
+block and read each pair of the tile once for all starts.
 
 A launch takes one of two paths, each a kernel template of the source.
 The streaming path (`bank_pass`) streams the bank through shared memory
@@ -60,6 +63,7 @@ import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "collision_bank.cu"
+GRID_SOURCE = _PKG / "csrc" / "collision_bank_grid.cpp"   # the grid model, for the host compiler
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -182,25 +186,36 @@ def build(verbose: bool = False, source: Path = SOURCE, extra_flags: tuple = ())
     return {"path": str(out), "seconds": seconds, "built": True, "log": proc.stderr}
 
 
+_TYPES = {"13__nv_bfloat16": "bf16", "f": "f32", "d": "f64"}
+
+
+def kernel_name(mangled: str) -> str:
+    """The readable name of an instantiation of ``bank_pass``,
+    ``bank_pass_small`` or ``rollout_kernel`` (any other name as it is):
+    ``bank_pass<A type,offsets' type,S<=bound,values|value+jac[,G groups]>``,
+    G the most start groups a block of the instantiation holds side by side."""
+    m = re.search(r"(bank_pass(?:_small)?)I(13__nv_bfloat16|f|d)(f|d)Li(\d+)ELb([01])E"
+                  r"(?:Li(\d+)E)?", mangled)
+    if m:  # bank_pass[_small]<A type, offsets' type, start bound, with Jacobian[, groups]>
+        groups = f",{m[6]} groups" if m[6] and m[6] != "1" else ""
+        return (f"{m[1]}<{_TYPES[m[2]]},{_TYPES[m[3]]},S<={m[4]},"
+                f"{'value+jac' if m[5] == '1' else 'values'}{groups}>")
+    m = re.search(r"rollout_kernelI(f|d)Li(\d+)E", mangled)
+    if m:  # rollout_kernel<scalar, template integer>
+        return f"rollout_kernel<{_TYPES[m[1]]},{m[2]}>"
+    return mangled
+
+
 def ptxas_summary(log: str) -> list:
     """One row per kernel of a ``-Xptxas -v`` log: {"kernel", "registers",
     "spill_stores", "spill_loads", "smem_bytes", "barriers"} (spills in bytes
     per thread, shared memory in bytes per block), the instantiations of
     ``bank_pass``, ``bank_pass_small`` and ``rollout_kernel`` under a
-    readable name."""
+    readable name (`kernel_name`)."""
     rows, name, spill = [], None, (0, 0)
-    types = {"13__nv_bfloat16": "bf16", "f": "f32", "d": "f64"}
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            name = line.split("'")[1]
-            m = re.search(r"(bank_pass(?:_small)?)I(13__nv_bfloat16|f|d)(f|d)Li(\d+)ELb([01])E",
-                          name)
-            if m:  # bank_pass[_small]<A type, offsets' type, start bound, with Jacobian>
-                name = (f"{m[1]}<{types[m[2]]},{types[m[3]]},S<={m[4]},"
-                        f"{'value+jac' if m[5] == '1' else 'values'}>")
-            m = re.search(r"rollout_kernelI(f|d)Li(\d+)E", name)
-            if m:  # rollout_kernel<scalar, template integer>
-                name = f"rollout_kernel<{types[m[1]]},{m[2]}>"
+            name = kernel_name(line.split("'")[1])
         elif "bytes spill stores" in line:
             spill = tuple(int(x) for x in re.findall(r"(\d+) bytes spill", line))
         elif "Used" in line and "registers" in line and name:
@@ -212,6 +227,48 @@ def ptxas_summary(log: str) -> list:
                          "barriers": int(bars[1]) if bars else None})
             name, spill = None, (0, 0)
     return rows
+
+
+@functools.lru_cache(maxsize=None)
+def grid_model() -> ctypes.CDLL:
+    """The launch geometry of `csrc/collision_bank_grid.cuh` (each path's
+    grid and the choice between them), built with the host compiler into
+    the build directory at first use: the model the kernels launch on, asked
+    without a card (`csrc/collision_bank_grid.cpp` has its C interface)."""
+    out = library_path(GRID_SOURCE)
+    if not out.exists():
+        cxx = shutil.which(os.environ.get("CXX", "g++"))
+        if cxx is None:
+            raise RuntimeError(f"no C++ compiler found: the grid model is built from {GRID_SOURCE}")
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        proc = subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-o", tmp,
+                               str(GRID_SOURCE)], capture_output=True, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"the grid model did not build ({proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    lib.grid_stream_blocks.restype = ctypes.c_longlong
+    return lib
+
+
+def stream_grid(S: int, L: int, O: int, T: int, jac: bool, o_size: int) -> dict:
+    """The streaming path's grid for one world, as the launch computes it:
+    the start groups and their sizes, how many share a block, the template
+    bound on a group's starts and the most groups a block of that
+    instantiation holds (the instantiation), the obstacles a thread owns,
+    threads per block and blocks."""
+    m = grid_model()
+    groups, bound = m.grid_stream_groups(S, jac, o_size), m.grid_stream_bound(S, jac, o_size)
+    in_block = m.grid_block_groups(S, jac, o_size)
+    firsts = [m.grid_group_start(k, S, groups, bound, in_block > 1) for k in range(groups + 1)]
+    return {"groups": groups, "starts": [b - a for a, b in zip(firsts, firsts[1:])],
+            "block_groups": in_block, "bound": bound,
+            "instantiated_groups": m.grid_most_block_groups(o_size) if in_block > 1 else 1,
+            "obstacles_per_thread": m.grid_obstacles_per_thread(bound, jac, o_size, in_block > 1),
+            "threads": 128 * in_block, "blocks": m.grid_stream_blocks(S, L, O, T, jac, o_size)}
 
 
 def bind(path) -> ctypes.CDLL:

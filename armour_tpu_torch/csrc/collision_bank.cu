@@ -32,16 +32,21 @@
 //   A (B,P,3,L,O,T)  dpos, dneg (B,P,L,O,T)  c (B,S,3,L,T)  dc (B,S,n,3,L,T)
 //   g (B,S,L,O,T)    J (B,S,n,L,O,T)
 //
-// Bound: memory.  Per launch the kernel must read the bank once and write g
-// and J once; the arithmetic is ~10 operations per (slot, start, pair), a
-// depth-3 product followed by a compare-and-select, which is no work for the
-// tensor cores (wgmma wants a depth of 16 and has no max/argmax).  At the
-// main path's shapes (B=128, S=4, n=7, L=7, O=8, T=128, bf16 A, f32
-// offsets): 198 MB of A + 264 MB of offsets + 44 MB of c/dc + 118 MB of
-// g/J = 624 MB per launch (2.94 GB at O=40).  What a memory-bound kernel
-// needs is enough bytes in flight (3.35 TB/s times ~1 us of latency is about
-// 25 KB for each of the 132 SMs) without paying for them in registers, and
-// few enough instructions per slot that issuing them hides under the copies.
+// Bound: memory at the main path's start counts.  Per launch the kernel must
+// read the bank once and write g and J once; the arithmetic is a depth-3
+// product followed by a compare-and-select per (slot, start, pair), which is
+// no work for the tensor cores (wgmma wants a depth of 16 and has no
+// max/argmax).  At the main path's shapes (B=128, S=4, n=7, L=7, O=8,
+// T=128, bf16 A, f32 offsets): 198 MB of A + 264 MB of offsets + 44 MB of
+// c/dc + 118 MB of g/J = 624 MB per launch (2.94 GB at O=40).  What a
+// memory-bound kernel needs is enough bytes in flight (3.35 TB/s times ~1 us
+// of latency is about 25 KB for each of the 132 SMs) without paying for them
+// in registers, and few enough instructions per slot that issuing them
+// hides under the copies.  Values only at many starts, issuing sets the
+// floor instead: at least 7 lane instructions per (slot, start, pair), so a
+// 12-start plan's pool of 26 (33 M (slot, pair) items at B=128, O=8) needs
+// 0.18 ms of the card's 132 SMs x 128 lanes at 1.98 GHz, the same as its
+// 0.177 ms byte bound.
 //
 // Design of the streaming path.
 // * A thread owns one (link, time step) and V obstacles of it (V = 4, 2 or
@@ -67,28 +72,49 @@
 //   runs no faster: the instruction stream hides under the copies.
 // * Each thread keeps best[s] and, with the Jacobian, the winning signed
 //   normal of its V obstacles for a group of starts in registers.  V is the
-//   most of 4, 2, 1 whose state stays within 80 registers.  The group size
+//   most of 4, 2, 1 whose state stays within 80 registers (72 where groups
+//   share a block, whose threads have at most 128).  The group size
 //   is a template bound: 1, 4 with the Jacobian (V = 4); 1, 4, 10 (the
-//   verification pool of 2S + 2 candidates), 16 without.  The pair loop
-//   carries no `s < S` test: starts past the group's last compute on c = 0
-//   and are not stored.
+//   verification pool of 2S + 2 candidates), 16 without, and 9 to 16 for
+//   groups side by side (below).  The pair loop carries no `s < S` test:
+//   starts past the group's last compute on c = 0 and are not stored.
 // * Any S is one launch.  Up to the largest bound a block serves all starts
-//   of its tile.  Above it the starts fall into G = ceil(S / bound) groups,
-//   each as small a bound as holds ceil(S / G) starts; the G blocks of one
-//   tile and its groups are neighbours in the grid (block x = tile * G +
-//   group), so they run at the same time and stream the same pairs: the
-//   first block's copies bring a pair from device memory into L2 and the
-//   others' copies find it there.  Device memory sees the bank about once;
-//   each block writes its starts of g and J at their own offsets in the
-//   full outputs.  A start's arithmetic does not depend on its group, so a
-//   start's g and J are the same bits at any S.  With the Jacobian a group
-//   holds 4 starts: 8 would leave V = 1, whose four times as many small
-//   copies cost more than a second read of the bank from L2 (S = 8: 0.328 ms
-//   as two groups of 4, 0.435 ms as one of 8; S = 12: 0.458 ms as three
-//   groups of 4, 0.703 ms as groups of 8, 0.665 ms with the groups one after
-//   the other in the grid; H100 SXM, `bench_bank`).
-// * The values-only body needs neither the sign nor the normals: three
-//   multiply-adds, two subtractions, one maximum and a NaN-guarded maximum.
+//   of its tile.  Above it the starts fall into groups (collision_bank_grid.cuh).
+//   With the Jacobian a group holds 4 starts and is a block of its own; the G blocks
+//   of one tile are neighbours in the grid (block x = tile * G + group), so
+//   they run at the same time and stream the same pairs: the first block's
+//   copies bring a pair from device memory into L2 and the others' copies
+//   find it there.  8 starts a group would leave V = 1, whose four times as
+//   many small copies cost more than a second read of the bank from L2
+//   (S = 8: 0.328 ms as two groups of 4, 0.435 ms as one of 8; S = 12: 0.458
+//   ms as three groups of 4, 0.703 ms as groups of 8, 0.665 ms with the
+//   groups one after the other in the grid; H100 SXM, `bench_bank`).
+// * Values only, a group holds up to 16 starts, and above that (a 12-start
+//   plan's pool of 26) the groups sit side by side in one block
+//   (GROUPS > 1): up to 4 groups of 128 threads (2 with f64 offsets), each
+//   with its own c and best in registers, all reading the same ring stage, so
+//   a tile's pairs come from device memory once for all its starts.  Each
+//   group's template bound is exactly the largest group's size (9 to 16), so
+//   at S = 26 two groups of 13 compute 26 starts, where two blocks of 16
+//   computed 32 and read the bank twice.  There a block barrier per pair
+//   would stall 8 warps on the slowest: a warp instead releases a stage
+//   through its "empty" mbarrier once it holds its part, and warp 0 refills
+//   the stage once every warp has; a pass takes the ring's 4 pairs, so each
+//   pair's stage and barriers are constants.  A pair folds into best by PTX
+//   max.NaN of the two pieces and fmaxf (fold: the same bits as the guard,
+//   2 instructions where the guard takes 4).  The pair loop issues 214 lane
+//   instructions per pair for 26 (slot, start) items, 8.2 a (slot, start,
+//   pair), and warp 0 62 more for the copies (SASS, `bench_bank --sass`;
+//   the 16-start body of two blocks: 305 per pair for 32 items, 9.5).  Tried
+//   and slower on an H100 (`bench_bank`): a block barrier per pair, the
+//   guard instead of fold, the refill by each warp in turn, 6 or 8 stages,
+//   reading the next pair while one computes, 2 pairs a stage, a producer
+//   warp of its own, persistent blocks (the last four at the 128-register
+//   cap, or over it).  A start's arithmetic does not depend on its group, so
+//   a start's g and J are the same bits at any S and in any layout.
+// * The values-only body needs neither the sign nor the normals: a multiply
+//   and two multiply-adds, two subtractions, the maximum of the two pieces
+//   and a NaN-guarded maximum into best (fold where groups share a block).
 // * Bulk copies need 16-byte alignment of every row: N * sizeof(A's type) a
 //   multiple of 16 and aligned base pointers.  Shapes that miss that, a T
 //   that does not divide 128 or an O that V does not divide take the direct
@@ -134,6 +160,9 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+#include <utility>
+
 #include "collision_bank_grid.cuh"
 
 namespace {
@@ -154,11 +183,26 @@ __device__ __forceinline__ double upcast<__nv_bfloat16, double>(__nv_bfloat16 x)
 __device__ __forceinline__ float max_of(float a, float b) { return fmaxf(a, b); }
 __device__ __forceinline__ double max_of(double a, double b) { return fmax(a, b); }
 
+// The values-only update of a running max by one pair's pieces: a pair with a
+// NaN in either piece is skipped whole (fmax alone would drop only the NaN
+// operand).  f32: max.NaN gives NaN for such a pair and fmaxf then keeps
+// best, two instructions where the guard takes four, with the same result;
+// f64 has no max.NaN and keeps the guard.
+__device__ __forceinline__ void fold(float& best, float vp, float vn) {
+  float v;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(v) : "f"(vp), "f"(vn));
+  best = fmaxf(best, v);
+}
+__device__ __forceinline__ void fold(double& best, double vp, double vn) {
+  if (vp == vp && vn == vn) best = fmax(best, fmax(vp, vn));
+}
+
 using namespace armour_bank;
 
-template <typename OT, int MAXS, bool JAC>
+template <typename OT, int MAXS, bool JAC, int GROUPS>
 struct ObstaclesPerThread {
-  static constexpr int value = obstacles_per_thread(MAXS, JAC, static_cast<int>(sizeof(OT) / 4));
+  static constexpr int value =
+      obstacles_per_thread(MAXS, JAC, static_cast<int>(sizeof(OT) / 4), GROUPS > 1);
 };
 
 // ---- Hopper asynchronous copies ------------------------------------------
@@ -190,6 +234,22 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
+// One arrival on a barrier (release: the caller's reads before it are done).
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// True on one lane of the (converged) warp.
+__device__ __forceinline__ bool elect_one() {
+  uint32_t one;
+  asm volatile(
+      "{\n\t.reg .b32 lane;\n\t.reg .pred p;\n\t"
+      "elect.sync lane|p, 0xffffffff;\n\t"
+      "selp.u32 %0, 1, 0, p;\n\t}"
+      : "=r"(one));
+  return one;
+}
+
 // 1-D bulk copy, device memory -> shared memory, completion on an mbarrier.
 __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
                                           uint32_t bar) {
@@ -204,6 +264,12 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst),
                "l"(__cvta_generic_to_global(src))
                : "memory");
+}
+
+// f(p + i, integral_constant<i>) for i = 0 .. N - 1, in order.
+template <typename F, int... I>
+__device__ __forceinline__ void each_stage(F& f, int p, std::integer_sequence<int, I...>) {
+  (f(p + I, std::integral_constant<int, I>()), ...);
 }
 
 // ---- the arithmetic of one hyperplane pair: V obstacles, all starts --------
@@ -223,7 +289,7 @@ __device__ __forceinline__ OT jac_dot(OT a0, OT a1, OT a2, OT dx, OT dy, OT dz) 
   return a0 * dx + a1 * dy + a2 * dz;
 }
 
-template <typename OT, int MAXS, int NJ, bool JAC, int V>
+template <typename OT, int MAXS, int NJ, bool JAC, int V, bool FOLD>
 __device__ __forceinline__ void pair_update(
     const OT (&A0)[V], const OT (&A1)[V], const OT (&A2)[V], const OT (&dp)[V],
     const OT (&dn)[V], const OT (&cx)[MAXS], const OT (&cy)[MAXS], const OT (&cz)[MAXS],
@@ -244,6 +310,8 @@ __device__ __forceinline__ void pair_update(
           a1[s][j] = pos ? -A1[j] : A1[j];
           a2[s][j] = pos ? -A2[j] : A2[j];
         }
+      } else if constexpr (FOLD) {
+        fold(best[s][j], vp, vn);
       } else {
         // fmax would drop a NaN operand, which is not the rule: a pair with
         // a NaN in either piece is skipped whole
@@ -254,27 +322,31 @@ __device__ __forceinline__ void pair_update(
   }
 }
 
-template <typename AT, typename OT, int MAXS, bool JAC>
-__global__ void __launch_bounds__(kThreads) bank_pass(
+template <typename AT, typename OT, int MAXS, bool JAC, int GROUPS>
+__global__ void __launch_bounds__(kThreads * GROUPS) bank_pass(
     const AT* __restrict__ A, const OT* __restrict__ dpos, const OT* __restrict__ dneg,
     const OT* __restrict__ c, const OT* __restrict__ dc, OT* __restrict__ g,
     OT* __restrict__ J, int P, int L, int O, int T, int S, int n, int groups, int staged) {
-  constexpr int V = ObstaclesPerThread<OT, MAXS, JAC>::value;
+  constexpr int V = ObstaclesPerThread<OT, MAXS, JAC, GROUPS>::value;
   constexpr int TILE = kThreads * V;
   constexpr int NJ = JAC ? MAXS : 1;  // no normals are kept without the Jacobian
   constexpr int ROW_A = TILE * static_cast<int>(sizeof(AT));
   constexpr int ROW_O = TILE * static_cast<int>(sizeof(OT));
   constexpr int STAGE = 3 * ROW_A + 2 * ROW_O;
-  extern __shared__ __align__(128) unsigned char smem[];  // kStages barriers, then the ring
+  extern __shared__ __align__(128) unsigned char smem[];  // the barriers, then the ring
 
-  // The block's tile and start group: starts s0 .. s0 + SG - 1.
-  const int s0 = (blockIdx.x % groups) * MAXS;
-  const int SG = min(MAXS, S - s0);
+  // The block's tile and the start group of the thread's kThreads threads
+  // (one group a block unless GROUPS > 1): starts s0 .. s0 + SG - 1.
+  const int in_block = GROUPS == 1 ? 1 : blockDim.x / kThreads;
+  const int blocks_per_tile = groups / in_block;
+  const int k = (blockIdx.x % blocks_per_tile) * in_block + threadIdx.x / kThreads;
+  const int s0 = group_start(k, S, groups, MAXS, GROUPS > 1);
+  const int SG = group_start(k + 1, S, groups, MAXS, GROUPS > 1) - s0;
   // The thread's item: link l, obstacles og*V .. og*V+V-1, time step t.
-  const int tid = threadIdx.x;
+  const int tid = GROUPS == 1 ? threadIdx.x : threadIdx.x % kThreads;
   const int OG = (O + V - 1) / V;  // obstacle groups of one link
   const int N = L * O * T;         // slots of one world; the launch checks that it fits an int
-  const int q0 = (blockIdx.x / groups) * kThreads;
+  const int q0 = (blockIdx.x / blocks_per_tile) * kThreads;
   const int q = q0 + tid;
   const bool live_q = q < L * OG * T;
   const int t = q % T, lg = q / T;
@@ -294,7 +366,8 @@ __global__ void __launch_bounds__(kThreads) bank_pass(
   // Staged (the launch grants it when O % V == 0, 128 % T == 0 and every row
   // is 16-byte aligned): the block's 128 items are whole runs of T time
   // steps, so its slots are the contiguous tile [q0 * V, q0 * V + count).
-  const uint32_t bars = smem_u32(smem);
+  const uint32_t bars = smem_u32(smem);         // kStages "full" barriers
+  const uint32_t empties = bars + 8 * kStages;  // GROUPS > 1: kStages "empty" barriers
   const uint32_t ring = bars + 128;
   const int tile0 = q0 * V;
   const int count = min(TILE, N - tile0);
@@ -311,13 +384,17 @@ __global__ void __launch_bounds__(kThreads) bank_pass(
     bulk_copy(dst + 3 * ROW_A, Dp + (int64_t)p * N + tile0, bytes_o, bar);
     bulk_copy(dst + 3 * ROW_A + ROW_O, Dn + (int64_t)p * N + tile0, bytes_o, bar);
   };
+  const int warp = GROUPS > 1 ? __shfl_sync(0xffffffff, threadIdx.x / 32, 0) : 0;  // warp-uniform
   if (staged) {
-    if (tid == 0) {
-      for (int s = 0; s < kStages; ++s) mbar_init(bars + 8 * s, 1);
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < kStages; ++s) {
+        mbar_init(bars + 8 * s, 1);
+        if (GROUPS > 1) mbar_init(empties + 8 * s, blockDim.x / 32);
+      }
       asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     }
     __syncthreads();
-    if (tid == 0)
+    if (threadIdx.x == 0)
       for (int p = 0; p < kStages && p < P; ++p) fill(p, p);
   }
 
@@ -340,7 +417,39 @@ __global__ void __launch_bounds__(kThreads) bank_pass(
   }
 
   OT A0[V], A1[V], A2[V], dp[V], dn[V];
-  if (staged) {
+  if (staged && GROUPS > 1) {
+    // Groups side by side: a warp releases a stage through its "empty"
+    // barrier once it holds its part, warp 0 refills the stage when every
+    // warp has, and no block barrier stops the others.  A pass takes kStages
+    // pairs, so that each pair's stage is a constant.
+    const int rel = live_q ? slot0 - tile0 : 0;  // the thread's first slot inside the tile
+    auto step = [&](int p, auto st) {
+      constexpr int stage = decltype(st)::value;
+      if (p >= P) return;
+      const uint32_t parity = (p / kStages) & 1;
+      mbar_wait(bars + 8 * stage, parity);
+      const unsigned char* row = smem + 128 + stage * STAGE;
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const int at = rel + j * T;
+        A0[j] = upcast<AT, OT>(reinterpret_cast<const AT*>(row)[at]);
+        A1[j] = upcast<AT, OT>(reinterpret_cast<const AT*>(row + ROW_A)[at]);
+        A2[j] = upcast<AT, OT>(reinterpret_cast<const AT*>(row + 2 * ROW_A)[at]);
+        dp[j] = reinterpret_cast<const OT*>(row + 3 * ROW_A)[at];
+        dn[j] = reinterpret_cast<const OT*>(row + 3 * ROW_A + ROW_O)[at];
+      }
+      __syncwarp();
+      if (elect_one()) mbar_arrive(empties + 8 * stage);  // the warp holds its part
+      if (warp == 0 && p + kStages < P) {
+        mbar_wait(empties + 8 * stage, parity);  // every warp holds its part
+        if (elect_one()) fill(p + kStages, stage);
+        __syncwarp();
+      }
+      pair_update<OT, MAXS, NJ, JAC, V, true>(A0, A1, A2, dp, dn, cx, cy, cz, best, a0, a1, a2);
+    };
+    for (int p = 0; p < P; p += kStages)
+      each_stage(step, p, std::make_integer_sequence<int, kStages>());
+  } else if (staged) {
     const int rel = live_q ? slot0 - tile0 : 0;  // the thread's first slot inside the tile
     for (int p = 0; p < P; ++p) {
       const int stage = p % kStages;
@@ -356,8 +465,8 @@ __global__ void __launch_bounds__(kThreads) bank_pass(
         dn[j] = reinterpret_cast<const OT*>(row + 3 * ROW_A + ROW_O)[at];
       }
       __syncthreads();  // every thread holds its part of the stage: refill it
-      if (tid == 0 && p + kStages < P) fill(p + kStages, stage);
-      pair_update<OT, MAXS, NJ, JAC, V>(A0, A1, A2, dp, dn, cx, cy, cz, best, a0, a1, a2);
+      if (threadIdx.x == 0 && p + kStages < P) fill(p + kStages, stage);
+      pair_update<OT, MAXS, NJ, JAC, V, false>(A0, A1, A2, dp, dn, cx, cy, cz, best, a0, a1, a2);
     }
   } else {
     // direct path: any P, L, O, T, scalar loads that coalesce along t
@@ -372,7 +481,8 @@ __global__ void __launch_bounds__(kThreads) bank_pass(
         dp[j] = in ? Dp[(int64_t)p * N + at] : static_cast<OT>(0);
         dn[j] = in ? Dn[(int64_t)p * N + at] : static_cast<OT>(0);
       }
-      pair_update<OT, MAXS, NJ, JAC, V>(A0, A1, A2, dp, dn, cx, cy, cz, best, a0, a1, a2);
+      pair_update<OT, MAXS, NJ, JAC, V, (GROUPS > 1)>(A0, A1, A2, dp, dn, cx, cy, cz, best, a0, a1,
+                                                      a2);
     }
   }
 
@@ -640,30 +750,32 @@ int sm_count(int device, int* sms) {
   return err;
 }
 
-template <typename AT, typename OT, int MAXS, bool JAC>
+template <typename AT, typename OT, int MAXS, bool JAC, int GROUPS>
 int launch_bound(const AT* A, const OT* dpos, const OT* dneg, const OT* c, const OT* dc, OT* g,
                  OT* J, int B, int P, int L, int O, int T, int S, int n, int device,
                  cudaStream_t stream) {
-  constexpr int V = ObstaclesPerThread<OT, MAXS, JAC>::value;
+  constexpr int V = ObstaclesPerThread<OT, MAXS, JAC, GROUPS>::value;
   constexpr int TILE = kThreads * V;
   constexpr int SMEM = 128 + kStages * TILE * static_cast<int>(3 * sizeof(AT) + 2 * sizeof(OT));
-  static_assert(kStages * 8 <= 128 && SMEM <= kMaxSmem, "the ring must fit a block's shared memory");
+  static_assert(2 * kStages * 8 <= 128 && SMEM <= kMaxSmem,
+                "the barriers and the ring must fit a block's shared memory");
   const int64_t N = (int64_t)L * O * T;
   // staging: a block's items are whole (obstacle group, T) runs, and every
   // row of its tile starts and ends on a 16-byte boundary
   const bool staged = O % V == 0 && kThreads % T == 0 && (N * sizeof(AT)) % 16 == 0 &&
                       aligned(A, 16) && aligned(dpos, 16) && aligned(dneg, 16);
-  auto kernel = bank_pass<AT, OT, MAXS, JAC>;
+  auto kernel = bank_pass<AT, OT, MAXS, JAC, GROUPS>;
   static int64_t granted[kDevices] = {};
   const int err = allow_smem(kernel, SMEM, device, granted);
   if (err) return err;
-  // the grid of launch_path's model (MAXS is stream_bound(S, JAC))
-  const int groups = stream_groups(S, JAC);
+  // the grid of launch_path's model (MAXS is stream_bound(S, JAC, sizeof(OT)))
+  const int groups = stream_groups(S, JAC, sizeof(OT));
+  const int threads = kThreads * block_groups(S, JAC, sizeof(OT));
   const int64_t blocks = stream_blocks(S, L, O, T, JAC, sizeof(OT));
-  if (blocks > INT32_MAX) return (int)cudaErrorInvalidConfiguration;
+  if (blocks > INT32_MAX || threads > kThreads * GROUPS) return (int)cudaErrorInvalidConfiguration;
   const dim3 grid((unsigned)blocks, B);
-  kernel<<<grid, kThreads, SMEM, stream>>>(A, dpos, dneg, c, dc, g, J, P, L, O, T, S, n, groups,
-                                           staged);
+  kernel<<<grid, threads, SMEM, stream>>>(A, dpos, dneg, c, dc, g, J, P, L, O, T, S, n, groups,
+                                          staged);
   return (int)cudaGetLastError();
 }
 
@@ -703,16 +815,31 @@ int launch(const void* A, const void* dpos, const void* dneg, const void* c, con
     SMALL_LAUNCH(kSmallStarts);
 #undef SMALL_LAUNCH
   }
-#define BANK_LAUNCH(BOUND) \
-  return launch_bound<AT, OT, BOUND, JAC>(a, p, m, cc, dd, gg, jj, B, P, L, O, T, S, n, device, \
-                                          stream)
-  const int bound = stream_bound(S, JAC);
-  if (bound == 1) BANK_LAUNCH(1);
-  if (bound == 4) BANK_LAUNCH(4);
+#define BANK_LAUNCH(BOUND, GROUPS)                                                        \
+  return launch_bound<AT, OT, BOUND, JAC, GROUPS>(a, p, m, cc, dd, gg, jj, B, P, L, O, T, S, n, \
+                                                  device, stream)
+  const int bound = stream_bound(S, JAC, sizeof(OT));
+  if (bound == 1) BANK_LAUNCH(1, 1);
+  if (bound == 4) BANK_LAUNCH(4, 1);
   if constexpr (!JAC) {
-    if (bound == 10) BANK_LAUNCH(10);
+    if (block_groups(S, JAC, sizeof(OT)) > 1) {
+      // values only above one start group: groups of exactly 9 to 16 starts
+      // side by side in a block
+      constexpr int G = most_block_groups(sizeof(OT));
+      switch (bound) {
+        case 9: BANK_LAUNCH(9, G);
+        case 10: BANK_LAUNCH(10, G);
+        case 11: BANK_LAUNCH(11, G);
+        case 12: BANK_LAUNCH(12, G);
+        case 13: BANK_LAUNCH(13, G);
+        case 14: BANK_LAUNCH(14, G);
+        case 15: BANK_LAUNCH(15, G);
+        default: BANK_LAUNCH(16, G);
+      }
+    }
+    if (bound == 10) BANK_LAUNCH(10, 1);
   }
-  BANK_LAUNCH(JAC ? 4 : 16);
+  BANK_LAUNCH(JAC ? 4 : 16, 1);
 #undef BANK_LAUNCH
 }
 

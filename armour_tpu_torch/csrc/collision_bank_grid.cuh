@@ -1,10 +1,18 @@
 // Launch geometry of the bank pass (collision_bank.cu): the grid of each of
 // its two paths and the choice between them.  Host code free of CUDA, so
-// that the kernels and a CPU test (tests/test_torch_bank_path.py, built with
-// a host compiler) read the one model of the grid.
+// that the kernels and, through collision_bank_grid.cpp built with a host
+// compiler, the CPU tests (tests/test_torch_bank_path.py) and bench_bank read
+// the one model of the grid.
 #pragma once
 
 #include <stdint.h>
+
+// group_start is also called by the kernels
+#ifdef __CUDACC__
+#define ARMOUR_BANK_HOST_DEVICE __host__ __device__
+#else
+#define ARMOUR_BANK_HOST_DEVICE
+#endif
 
 namespace armour_bank {
 
@@ -12,10 +20,14 @@ constexpr int kStream = 0;     // the launch's paths, as the C entry points numb
 constexpr int kSmallGrid = 1;
 constexpr int kAuto = 2;       // the launch chooses (launch_path)
 
-// The streaming path: a block is kThreads (link, obstacle group, time) items.
+// The streaming path: a block's tile is kThreads (link, obstacle group, time)
+// items, with kThreads threads for each start group of the block.
 constexpr int kThreads = 128;
 constexpr int kStages = 4;           // pairs in flight per block
 constexpr int kStateRegisters = 80;  // budget for the per-thread running state
+// the same where start groups share a block (f32: 512 threads, at most 128
+// registers a thread)
+constexpr int kGroupedStateRegisters = 72;
 
 // The small-grid path: a block is kSlots slots, one obstacle per thread, and
 // kPairGroups groups of 4 warps that share the pair axis.
@@ -31,32 +43,69 @@ constexpr int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
 // Obstacles per thread of the streaming path: the most of 4, 2, 1 whose
 // running state (c for every start, and per obstacle best plus, with the
-// Jacobian, the normal) fits the register budget.  `word` is the offsets'
-// size in 32-bit words.  (8 fit at one start, but tiles of 1024 slots left
-// too few blocks on an SM and ran slower; asking ptxas for 5 or 6 blocks per
-// SM through __launch_bounds__ made it spill and ran slower too.)
+// Jacobian, the normal) fits the register budget (kGroupedStateRegisters
+// where start groups share a block).  `word` is the offsets' size in 32-bit
+// words.  (8 fit at one start, but tiles of 1024 slots left too few blocks on
+// an SM and ran slower; asking ptxas for 5 or 6 blocks per SM through
+// __launch_bounds__ made it spill and ran slower too.)
 constexpr int state_words(int starts, int v, bool jac, int word) {
   return starts * (3 + v * (jac ? 4 : 1)) * word;
 }
-constexpr int obstacles_per_thread(int starts, bool jac, int word) {
-  return state_words(starts, 4, jac, word) <= kStateRegisters   ? 4
-         : state_words(starts, 2, jac, word) <= kStateRegisters ? 2
-                                                               : 1;
+constexpr int obstacles_per_thread(int starts, bool jac, int word, bool grouped = false) {
+  const int budget = grouped ? kGroupedStateRegisters : kStateRegisters;
+  return state_words(starts, 4, jac, word) <= budget   ? 4
+         : state_words(starts, 2, jac, word) <= budget ? 2
+                                                       : 1;
 }
 
-// The streaming path's start groups: the fewest (of at most 4 starts with the
-// Jacobian, 16 without), then the smallest instantiated bound that holds one.
-constexpr int stream_groups(int S, bool jac) { return (int)cdiv(S, jac ? 4 : 16); }
-constexpr int stream_bound(int S, bool jac) {
-  const int per_group = (int)cdiv(S, stream_groups(S, jac));
-  return per_group <= 1 ? 1 : per_group <= 4 ? 4 : (!jac && per_group <= 10) ? 10 : jac ? 4 : 16;
+// The most start groups side by side in one block, each kThreads threads
+// that read the same ring stages: 4 with f32 offsets (512 threads, so at most
+// 128 registers a thread), 2 with f64 (the running state of 16 starts alone
+// takes 128).
+constexpr int most_block_groups(int o_size) { return o_size == 4 ? 4 : 2; }
+
+// The streaming path's start groups.  With the Jacobian, groups of 4 starts,
+// each a block of its own.  Values only, one group up to 16 starts; above
+// that, the fewest groups of at most 16 side by side in a block, so that the
+// block reads each pair of its tile once for all its starts (beyond
+// most_block_groups, the fewest blocks a tile with as many groups in each).
+// The blocks of one tile are neighbours in the grid (block x = tile *
+// grid_groups + i).
+constexpr int grid_groups(int S, bool jac, int o_size) {
+  return (int)(jac ? cdiv(S, 4) : cdiv(cdiv(S, 16), most_block_groups(o_size)));
+}
+constexpr int block_groups(int S, bool jac, int o_size) {
+  return jac ? 1 : (int)cdiv(cdiv(S, 16), grid_groups(S, jac, o_size));
+}
+constexpr int stream_groups(int S, bool jac, int o_size) {
+  return grid_groups(S, jac, o_size) * block_groups(S, jac, o_size);
+}
+
+// The template bound on a group's starts, the instantiation a launch takes:
+// 1 or 4 with the Jacobian; values only 1, 4, 10 or 16 for a single group,
+// and above it exactly the largest group's size (9 to 16).
+constexpr int stream_bound(int S, bool jac, int o_size) {
+  if (jac) return S == 1 ? 1 : 4;
+  const int groups = stream_groups(S, jac, o_size);
+  if (groups > 1) return (int)cdiv(S, groups);
+  return S <= 1 ? 1 : S <= 4 ? 4 : S <= 10 ? 10 : 16;
+}
+
+// Group k's first start (k <= groups): groups side by side split the starts
+// into sizes that differ by at most one (the larger first), so that none
+// computes more than one start that it does not store; otherwise each group
+// takes `bound` starts in order and the last the rest.
+ARMOUR_BANK_HOST_DEVICE constexpr int group_start(int k, int S, int groups, int bound, bool even) {
+  return even ? k * (S / groups) + (k < S % groups ? k : S % groups)
+              : (k * bound < S ? k * bound : S);
 }
 
 // Blocks of one world's streaming grid: tiles of kThreads items, times the
-// start groups.
+// blocks of a tile.
 constexpr int64_t stream_blocks(int S, int L, int O, int T, bool jac, int o_size) {
-  const int v = obstacles_per_thread(stream_bound(S, jac), jac, o_size / 4);
-  return cdiv((int64_t)L * cdiv(O, v) * T, kThreads) * stream_groups(S, jac);
+  const int v = obstacles_per_thread(stream_bound(S, jac, o_size), jac, o_size / 4,
+                                     block_groups(S, jac, o_size) > 1);
+  return cdiv((int64_t)L * cdiv(O, v) * T, kThreads) * grid_groups(S, jac, o_size);
 }
 
 // Shared memory of a small-grid block: every pair of the tile, then each pair

@@ -15,7 +15,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
               and, for every timed row, the device time of 20 calls
               replayed from one CUDA graph; the values-only kernel also at
               the 10 candidates of the smooth-mode verification pool and at
-              the 26 of a 12-start plan's pool, the value + Jacobian kernel
+              the 26 of a 12-start plan's pool (two groups of 13 side by
+              side in one block, held to the bit against launches at its
+              first 16 and last 10 starts), the value + Jacobian kernel
               also at 12 starts (one launch of three start groups, held to the
               bit against launches at 8 and at 4 starts) and on the
               40-obstacle bank (bucket 16); then small random banks at T=32
@@ -25,7 +27,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
               allow the small-grid one) and holds them to the wrapper's
               output bit for bit; every timed row names the path its launch
               reported and carries the graph time of an empty kernel
-              (launch_floor) beside its bound
+              (launch_floor) beside its bound, and each streaming row its
+              grid (start groups, groups a block, blocks)
  3b. rollout_kernel
               the rollout kernel (csrc/rollout.cu: the whole move in one
               launch, one block of eight warps per world) against
@@ -2042,10 +2045,13 @@ def main() -> int:
             "bound_ms": max(b_mem, b_ops), "bound_by": "bytes" if b_mem >= b_ops else "operations",
             "library_ms": None, "floor_ms": floor_ms,
             "shapes": {"B": Bk, "S": Sx, "n": nk, "P": P, "L": L, "O": O, "T": T},
+            # the streaming layout the launch took: start groups, groups a block, blocks
+            "grid": kernels.stream_grid(Sx, L, O, T, jac, hp.dpos.element_size())
+            if path == "stream" else None,
         })
         emit({"phase": "kernel_time", **{k: row[k] for k in
               ("name", "path", "ms", "plain_ms", "graph_ms", "plain_graph_ms", "bytes",
-               "bound_ms", "floor_ms", "bound_by", "shapes")}})
+               "bound_ms", "floor_ms", "bound_by", "shapes", "grid")}})
 
     def bit_view(x):
         return x.contiguous().view(torch.int32 if x.dtype == torch.float32 else torch.int64)
@@ -2081,27 +2087,31 @@ def main() -> int:
         assert ran["stream"] == "stream", ran
         return ran[None]
 
-    def grouping_check(dtype, tol, args, g, J, split):
+    def grouping_check(dtype, tol, args, outs, split):
         """One launch at S starts against two launches of the same kernel,
-        at the first ``split`` starts and at the rest: a start's g and J do
+        at the first ``split`` starts and at the rest: a start's outputs do
         not depend on the starts beside it, so they should be the same bits;
-        any slot that differs is printed, and must lie within ``tol``."""
-        A, dpos, dneg, c, dc = args
-        parts = [kernels.fused_collision_value_jac_multi(A, dpos, dneg, c[:, sl].contiguous(),
-                                                         dc[:, sl].contiguous())
+        any slot that differs is printed, and must lie within ``tol``.  With
+        dc in ``args`` the value + Jacobian kernel, else the values-only one."""
+        jac = len(args) == 5
+        kern = kernels.fused_collision_value_jac_multi if jac else kernels.fused_collision_values_multi
+        c = args[3]
+        parts = [kern(*args[:3], *(x[:, sl].contiguous() for x in args[3:]))
                  for sl in (slice(0, split), slice(split, None))]
+        if not jac:
+            parts = [(part,) for part in parts]
         torch.cuda.synchronize()
-        out = {"phase": "kernel_grouping", "dtype": str(dtype)[6:], "S": c.shape[1],
-               "starts_per_launch": [split, c.shape[1] - split]}
-        for i, label in enumerate(("g", "J")):
-            one, two = (g, J)[i], torch.cat([parts[0][i], parts[1][i]], dim=1)
+        out = {"phase": "kernel_grouping", "kernel": kern.__name__, "dtype": str(dtype)[6:],
+               "S": c.shape[1], "starts_per_launch": [split, c.shape[1] - split]}
+        for i, label in enumerate(("g", "J")[:len(outs)]):
+            one, two = outs[i], torch.cat([parts[0][i], parts[1][i]], dim=1)
             differ = one != two
             out[label] = {"slots_differing": int(differ.sum()),
                           "max_abs_diff": float((one - two).abs().max()),
                           "first_differing": differ.nonzero()[:10].tolist()}
             assert out[label]["max_abs_diff"] <= tol, \
                 f"S={c.shape[1]}: one launch against {split} + the rest: {label} {out[label]}"
-        out["bits_equal"] = out["g"]["slots_differing"] == 0 and out["J"]["slots_differing"] == 0
+        out["bits_equal"] = all(out[label]["slots_differing"] == 0 for label in ("g", "J")[:len(outs)])
         emit(out)
 
     for dtype, tol in ((torch.float32, 2e-6), (torch.float64, 1e-12)):
@@ -2137,16 +2147,19 @@ def main() -> int:
         check_and_time(hp, dtype, tol, kernels.fused_collision_value_jac_multi, many, True,
                        kernels.tie_mask(hp.A, hp.dpos, hp.dneg, c_many, tol=1e-5), many_name,
                        timed=dtype == torch.float32)
-        grouping_check(dtype, tol, many, g_many, J_many, split=8)
+        grouping_check(dtype, tol, many, (g_many, J_many), split=8)
         c_many_pool = kernel_layout(prob.links.slice_with_jac_multi(
             torch.as_tensor(K_many_pool_np, dtype=dtype, device=dev))[0])
         kernels.reset_launch_counts()
-        kernels.fused_collision_values_multi(hp.A, hp.dpos, hp.dneg, c_many_pool)
+        g_many_pool = kernels.fused_collision_values_multi(hp.A, hp.dpos, hp.dneg, c_many_pool)
         assert kernels.launch_counts()["fused_collision_values_multi"] == 1
         check_and_time(hp, dtype, tol, kernels.fused_collision_values_multi,
                        (hp.A, hp.dpos, hp.dneg, c_many_pool), False, unique, many_pool_name,
                        timed=dtype == torch.float32)
-        del many, c_many, dc_many, g_many, J_many, c_many_pool
+        # its 26 starts: groups of 13 side by side in a block, against
+        # launches of the first 16 (one group) and the last 10
+        grouping_check(dtype, tol, (hp.A, hp.dpos, hp.dneg, c_many_pool), (g_many_pool,), split=16)
+        del many, c_many, dc_many, g_many, J_many, c_many_pool, g_many_pool
         del planner, prob, hp, c, dc, c_pool, centers, dcenters, unique
         torch.cuda.empty_cache()
     # the 40-obstacle bank (seed 7: culled and compacted to bucket 16) through the main kernel

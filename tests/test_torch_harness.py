@@ -18,9 +18,6 @@ replan in every driver (one generator lives for the whole episode), and the
 same seed repeats them.
 """
 
-import glob
-import os
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,18 +30,16 @@ from armour_tpu.robots.kinova import kinova_gen3_spec as jax_kinova_gen3_spec
 from armour_tpu.sim import harness as jax_harness
 from armour_tpu_torch.collision.zonotope import ObstacleSet
 from armour_tpu_torch.config import PlannerConfig, SimConfig
-from armour_tpu_torch.dynamics.rnea import forward_kinematics
 from armour_tpu_torch.planner.armour import PlanResult
 from armour_tpu_torch.robots.kinova import kinova_gen3_spec
 from armour_tpu_torch.sim import harness
 from armour_tpu_torch.sim.recording import run_recorded_episode
-from armour_tpu_torch.sim.scenarios import load_world_csv
 from armour_tpu_torch.sim.world import World
+from torch_harness_worlds import two_worlds
 
 SPEC, JSPEC = kinova_gen3_spec(), jax_kinova_gen3_spec()
 PCFG = dict(num_time_steps=16)
 SCFG = dict(plant_dt=5e-3, max_iterations=3, stall_clearance=1)
-ASSETS = os.path.join(os.path.dirname(__file__), "..", "assets", "worlds")
 FLAGS = ("goal_reached", "collision", "torque_violation", "joint_limit_violation",
          "ultimate_bound_violation", "stopped", "iterations", "n_feasible_plans")
 
@@ -58,22 +53,6 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-def two_worlds():
-    """numpy (starts, goals, zonos (2, 40, 4, 3), masks) of the two worlds."""
-    w0 = load_world_csv(sorted(glob.glob(os.path.join(ASSETS, "*.csv")))[0], 40, device="cpu")
-    z0, m0 = w0.obstacles.zonos.numpy().copy(), w0.obstacles.mask.numpy().copy()
-    z0[7:], m0[7:] = 0.0, False
-    start1 = np.array([0.3, 0.4, 0.0, -1.2, 0.0, 0.5, 0.0])
-    Rw, pw = forward_kinematics(SPEC, torch.as_tensor(start1))
-    link = 3
-    center = (Rw[link] @ torch.as_tensor(SPEC.link_zono_center[link]) + pw[link]).numpy()
-    assert np.all(np.asarray(SPEC.link_zono_gen[link]) > 0.02)
-    obs1 = ObstacleSet.from_boxes(center[None], [[0.01, 0.01, 0.01]], 40)
-    starts = np.stack([w0.start.numpy(), start1])
-    goals = np.stack([w0.goal.numpy(), start1 + 0.8])
-    return starts, goals, np.stack([z0, obs1.zonos]), np.stack([m0, obs1.mask])
 
 
 def jax_draws(keys, n_iters, n_starts):

@@ -10,10 +10,10 @@ obstacle buckets 8, 16 and 40, the shards of a constraint-parallel rank
 (O = 4 and 20), the planar arms (L = n = 2 and 6), time axes of 1, 5, 32, 127 and others that
 are no multiple of the tile, slabs whose rows are not 16-byte aligned (the
 kernel's direct path instead of its staged one), pair counts other than 36
-(fewer than the ring has stages, and no multiple of it), 1 to 26 starts
+(fewer than the ring has stages, and no multiple of it), 1 to 33 starts
 (every instantiated bound, and the start groups beyond 4 with the Jacobian
-and 16 without: still one launch per call, a start's bits the same at any
-S), and banks with NaN offsets (a pair with a NaN never
+and 16 without, the latter side by side in one block: still one launch per
+call, a start's bits the same at any S), and banks with NaN offsets (a pair with a NaN never
 wins; a slot with none usable keeps g = 1e30, J = 0).  Each shape whose
 rows allow it also goes through both launch paths, forced (the streaming
 one and the small-grid one of the batch-1 and grasp banks), which must give
@@ -56,7 +56,8 @@ SHAPES = [  # B, S, n, L, O, T and, where it is not 36, P
     (2, 9, 7, 7, 8, 32),         # start groups of 4 + 4 + 1 with the Jacobian
     (1, 12, 7, 7, 8, 127),       # 4 + 4 + 4; an odd T on aligned rows
     (1, 17, 7, 7, 8, 128),       # values only: start groups of 10 + 7
-    (2, 26, 7, 7, 8, 128),       # a 12-start plan's pool: values 16 + 10, Jacobian 7 x 4
+    (2, 26, 7, 7, 8, 128),       # a 12-start plan's pool: values 13 + 13 in one block, Jacobian 7 x 4
+    (2, 33, 7, 7, 8, 128),       # values 11 + 11 + 11 in one block (f64: two blocks of 2 groups)
     (2, 4, 7, 7, 3, 5),          # O*T = 15: rows not aligned, the direct path
     (2, 4, 7, 7, 8, 1),
     (1, 4, 7, 7, 16, 64),
@@ -164,6 +165,23 @@ def test_twelve_starts_equal_launches_of_eight_and_four(card, types):
     uniq = kernels.tie_mask(A, dpos, dneg, c, tol=1e-5)
     assert (g - gp).abs().max().item() <= ATOL[types[1]]
     assert ((J - Jp).abs() * uniq[:, :, None]).max().item() <= ATOL[types[1]]
+
+
+@pytest.mark.parametrize("types", [(torch.bfloat16, torch.float32), (torch.float64, torch.float64)],
+                         ids=lambda t: f"{str(t[0])[6:]}-{str(t[1])[6:]}")
+def test_twenty_six_values_equal_launches_of_sixteen_and_ten(card, types):
+    """One values-only launch at S=26 (two groups of 13 side by side in a
+    block, on the streaming path at B=8) gives the same bits as launches at
+    its first 16 starts and its last 10, and agrees with the plain version."""
+    A, dpos, dneg, c, _ = _bank((8, 26, 1, 7, 8, 128), *types, seed=26, device=card)
+    _poison(dpos, dneg, seed=26)
+    g, ran = kernels._launch_values_multi(A, dpos, dneg, c)
+    parts = [kernels._launch_values_multi(A, dpos, dneg, c[:, sl].contiguous())
+             for sl in (slice(0, 16), slice(16, 26))]
+    torch.cuda.synchronize()
+    assert (ran, parts[0][1], parts[1][1]) == ("stream", "stream", "stream")
+    assert torch.equal(_bits(g), _bits(torch.cat([parts[0][0], parts[1][0]], dim=1)))
+    assert (g - kernels.values_multi_plain(A, dpos, dneg, c)).abs().max().item() <= ATOL[types[1]]
 
 
 def test_first_maximum_wins_and_nan_never_wins(card):
